@@ -2,16 +2,19 @@
 
 A port of `sail_tpu` (JAX on a TPU), which stays beside it as the
 reference.  This package imports torch and never jax.  It covers the forward
-serving path — `Renderer.update` → `render_spp` → `output` — for scenes of
-spheres, rectangles and a Cornell box with matte and mirror materials,
-uniform colors and rectangle area lights; on a CUDA device `render_spp` is
-one launch of the hand-written K1 megakernel (`csrc/megakernel.cu`).
+serving path — `Renderer.update` → `render_spp` → `output` — and the
+gradient path (`ops.cuda.megakernel.render_image_fast`) for scenes of every
+shape category, in any number, with matte and mirror materials, uniform
+colors and rectangle area lights; on a CUDA device `render_spp` is one
+launch of the hand-written K1 megakernel (`csrc/megakernel.cu`).
 """
 
 from . import constants
 from .constants import MAX_BOUNCES
 from .core.vecmath import Vec3
-from .scene.geometry import Cornellbox, Object3D, Rectangle, Sphere
+from .scene.geometry import (Cone, Cornellbox, Cube, Cylinder, Disk,
+                             Hyperboloid, Object3D, Paraboloid, Rectangle,
+                             Sphere)
 from .scene.light import AreaLight, Light
 from .scene.material import Material, Matte, Mirror
 from .scene.scene import Camera, Scene, SceneStatic
@@ -20,7 +23,8 @@ from .scene.texture import Texture, UniformColor
 __all__ = [
     "constants", "MAX_BOUNCES", "Vec3",
     "Scene", "Camera", "SceneStatic",
-    "Object3D", "Sphere", "Rectangle", "Cornellbox",
+    "Object3D", "Sphere", "Rectangle", "Cornellbox", "Cube", "Cone",
+    "Cylinder", "Disk", "Hyperboloid", "Paraboloid",
     "Material", "Matte", "Mirror", "Light", "AreaLight",
     "Texture", "UniformColor", "Renderer",
 ]

@@ -112,9 +112,13 @@ def where(c: torch.Tensor, a: Vec3, b: Vec3) -> Vec3:
                 torch.where(c, a.z, b.z))
 
 
+def lerp(a: Vec3, b: Vec3, t) -> Vec3:
+    return a * (1.0 - t) + b * t
+
+
 def full(shape, value: float, like: torch.Tensor) -> torch.Tensor:
-    """A float32 tensor of `shape` on `like`'s device."""
-    return torch.full(shape, value, dtype=torch.float32, device=like.device)
+    """A tensor of `shape` with `like`'s float dtype and device."""
+    return torch.full(shape, value, dtype=like.dtype, device=like.device)
 
 
 def zeros_vec(shape, like: torch.Tensor) -> Vec3:

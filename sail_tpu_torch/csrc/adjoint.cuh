@@ -19,18 +19,16 @@
 // A path that misses or dies leaves the loop: the masked JAX loop gives such
 // lanes exactly zero cotangent from then on.  The radiance sum's cotangent is
 // the pixel's g at every bounce (e' = e + thr . contrib), so e is not stored.
-// Sphere u, v feed nothing in the ported categories (UNIFORM_COLOR ignores
-// them), so the fastmath polynomials need no adjoint.
+// A hit's u, v feed nothing in the ported categories (UNIFORM_COLOR ignores
+// them); only the hyperboloid's normal reads the fastmath atan2 (`atan2_adj`).
+// Every shape category has its hit adjoint; the bound boxes and the cull are
+// comparisons and take none.
 #pragma once
 
 #include "path.cuh"
 
 namespace {
 
-// The most parameters a scene of the slice has: fewer than 8 objects per
-// shape (scene.check_supported), each with its own material and texture row,
-// every rectangle a light: 7*8 + 14*10 + 21*2 + 21*3 + 7*3 + 14 = 336.
-constexpr int MAX_PARAMS = 352;
 constexpr int MAX_GRAD_BOUNCES = 8;  // bounce states a thread stores
 
 // ------------------------------------------------------- rule helpers ----
@@ -167,11 +165,98 @@ __device__ void matte_f_adj(float kd, float sigma, V3 sc, V3 wo, V3 wi, V3 d_f, 
   d_kd += dot(d_r, sc);
 }
 
+// ------------------------------------------------------- scalar pieces ----
+// quadratic(a, b, c) (path.cuh), discrim >= 0 as on every hit: the cotangent
+// d_t of its high root (`high`) or its low root onto a, b and c.
+__device__ void quadratic_adj(float a, float b, float c, bool high, float d_t, float& d_a,
+                              float& d_b, float& d_c) {
+  float discrim = b * b - F(4.0) * a * c;
+  float root = sqrtf(fmaxf(discrim, F(1e-20)));
+  float q = b < 0.f ? F(-0.5) * (b - root) : F(-0.5) * (b + root);
+  float aa = a == 0.f ? F(1e-20) : a;
+  float qq = q == 0.f ? F(1e-20) : q;
+  float t0 = q / aa, t1 = c / qq;
+  float d_t0 = 0.f, d_t1 = 0.f;
+  if (high) max_adj(t0, t1, d_t, d_t0, d_t1);
+  else min_adj(t0, t1, d_t, d_t0, d_t1);
+  // t0 = q / aa; t1 = c / qq
+  float d_q = d_t0 / aa;
+  if (a != 0.f) d_a += -d_t0 * t0 / aa;
+  d_c += d_t1 / qq;
+  if (q != 0.f) d_q += -d_t1 * t1 / qq;
+  d_b += F(-0.5) * d_q;
+  float d_root = b < 0.f ? F(0.5) * d_q : F(-0.5) * d_q;
+  float d_disc = d_root * (F(0.5) / root) * max_fac(discrim, F(1e-20));
+  d_b += F(2.0) * b * d_disc;
+  d_a += F(-4.0) * c * d_disc;
+  d_c += F(-4.0) * a * d_disc;
+}
+
+// Which root clipped_quadratic (path.cuh) returned on a hit: the high one
+// unless the low one is past EPSILON and its z lies in [zlo, zhi].
+__device__ __forceinline__ bool clipped_root_is_high(V3 o, V3 d, float a, float b, float c2,
+                                                     float zlo, float zhi) {
+  float lo, hi;
+  quadratic(a, b, c2, lo, hi);
+  float t1c = lo < EPSILON ? hi : lo;
+  float z1 = o.z + d.z * t1c;
+  return !(z1 >= zlo && z1 <= zhi && !(lo < EPSILON));
+}
+
+// atan2_poly(y, x) (path.cuh): the cotangent d of its value onto y and x.
+__device__ void atan2_adj(float y, float x, float d, float& d_y, float& d_x) {
+  bool swap = fabsf(y) > fabsf(x);
+  float num = swap ? x : y;
+  float den0 = swap ? y : x;
+  float den = den0 == 0.f ? F(1e-30) : den0;
+  float t = num / den;
+  // r = t * p5, p_k = p_(k-1) * t2 + c_k, p0 constant
+  float t2 = t * t;
+  float p0 = F(-0.0117212);
+  float p1 = p0 * t2 + F(0.05265332);
+  float p2 = p1 * t2 + F(-0.11643287);
+  float p3 = p2 * t2 + F(0.19354346);
+  float p4 = p3 * t2 + F(-0.33262347);
+  float p5 = p4 * t2 + F(0.99997726);
+  float d_r = swap ? -d : d;  // swap: s - r
+  float d_t = d_r * p5, d_p = d_r * t;
+  float d_t2 = d_p * p4;
+  d_p = d_p * t2;
+  d_t2 += d_p * p3;
+  d_p = d_p * t2;
+  d_t2 += d_p * p2;
+  d_p = d_p * t2;
+  d_t2 += d_p * p1;
+  d_p = d_p * t2;
+  d_t2 += d_p * p0;
+  d_t += d_t2 * t + d_t2 * t;
+  float d_num = d_t / den;
+  float d_den = den0 == 0.f ? 0.f : -d_t * t / den;
+  if (swap) {
+    d_x += d_num;
+    d_y += d_den;
+  } else {
+    d_y += d_num;
+    d_x += d_den;
+  }
+}
+
+// o = to_object(ro - pos), d = to_object(rd): cotangents of o and d onto ro,
+// rd and the object's position (offset `off`).
+__device__ __forceinline__ void ray_to_object_adj(int off, V3 d_o, V3 d_d, V3& d_ro, V3& d_rd,
+                                                  float* G) {
+  V3 dw = from_object(d_o);  // to_object's adjoint is from_object
+  d_ro = d_ro + dw;
+  gadd3(G, off, -dw);
+  d_rd = d_rd + from_object(d_d);
+}
+
 // ------------------------------------------------------------ shapes ----
 // Each hit adjoint takes the cotangents of the winner's hit point p,
 // geometric normal ng and tangent dpdu, and adds onto ro, rd and the
 // object's parameters (offset `off`).  It recomputes the forward values with
-// path.cuh's expressions.
+// path.cuh's expressions.  u and v feed nothing in the ported categories
+// (UNIFORM_COLOR ignores them) and take no cotangent.
 
 __device__ void sphere_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_ng,
                                V3 d_dpdu, V3& d_ro, V3& d_rd, float* G) {
@@ -181,14 +266,8 @@ __device__ void sphere_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3
   float a = dot(d, d);
   float b = F(2.0) * dot(o, d);
   float c2 = dot(o, o) - r * r;
-  // quadratic(): discrim >= 0 on a hit
-  float discrim = b * b - F(4.0) * a * c2;
-  float root = sqrtf(fmaxf(discrim, F(1e-20)));
-  float q = b < 0.f ? F(-0.5) * (b - root) : F(-0.5) * (b + root);
-  float aa = a == 0.f ? F(1e-20) : a;
-  float qq = q == 0.f ? F(1e-20) : q;
-  float t0 = q / aa, t1 = c2 / qq;
-  float lo = fminf(t0, t1), hi = fmaxf(t0, t1);
+  float lo, hi;
+  quadratic(a, b, c2, lo, hi);
   bool far = lo < EPSILON;
   float t = far ? hi : lo;
   V3 h = o + d * t;
@@ -213,30 +292,14 @@ __device__ void sphere_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3
   // h = o + d * t
   V3 d_o = dh, d_d = dh * t;
   float d_t = dot(dh, d);
-  float d_t0 = 0.f, d_t1 = 0.f;
-  if (far) max_adj(t0, t1, d_t, d_t0, d_t1);
-  else min_adj(t0, t1, d_t, d_t0, d_t1);
-  // t0 = q / aa; t1 = c2 / qq
-  float d_q = d_t0 / aa;
-  float d_a = a == 0.f ? 0.f : -d_t0 * t0 / aa;
-  float d_c2 = d_t1 / qq;
-  if (q != 0.f) d_q += -d_t1 * t1 / qq;
-  float d_b = F(-0.5) * d_q;
-  float d_root = b < 0.f ? F(0.5) * d_q : F(-0.5) * d_q;
-  float d_disc = d_root * (F(0.5) / root) * max_fac(discrim, F(1e-20));
-  d_b += F(2.0) * b * d_disc;
-  d_a += F(-4.0) * c2 * d_disc;
-  d_c2 += F(-4.0) * a * d_disc;
+  float d_a = 0.f, d_b = 0.f, d_c2 = 0.f;
+  quadratic_adj(a, b, c2, far, d_t, d_a, d_b, d_c2);
   // a = d.d; b = 2 o.d; c2 = o.o - r*r
   d_d = d_d + d * (F(2.0) * d_a) + o * (F(2.0) * d_b);
   d_o = d_o + d * (F(2.0) * d_b) + o * (F(2.0) * d_c2);
   d_r += F(-2.0) * r * d_c2;
   gadd(G, off + 3, d_r);
-  // o = to_object(ro - c); d = to_object(rd)
-  V3 dw = from_object(d_o);
-  d_ro = d_ro + dw;
-  gadd3(G, off, -dw);
-  d_rd = d_rd + from_object(d_d);
+  ray_to_object_adj(off, d_o, d_d, d_ro, d_rd, G);
 }
 
 // rect_frame(s, off): cotangents of ex, ey, n, ss, ts onto bmin and bmax.
@@ -288,27 +351,41 @@ __device__ void rect_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d
   rect_frame_adj(off, f, d_ex, d_ey, d_n, d_ss, d_ts, G);
 }
 
-// The Cornell box's normal, tangent and wall colors are constant where they
-// are defined, so only p = ro + rd * tfar carries a cotangent.
-__device__ void cornell_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3& d_ro, V3& d_rd,
-                                float* G) {
+// A box's (cube, Cornell box) normal, tangent and wall colors are constant
+// where they are defined, so only p = ro + rd * t carries a cotangent: t is
+// the slab test's tnear where a cube is hit from outside, else its tfar.
+__device__ void box_hit_adj(const Scene& s, int off, bool cube, V3 ro, V3 rd, V3 d_p, V3& d_ro,
+                            V3& d_rd, float* G) {
   V3 bmin = P3(s, off), bmax = P3(s, off + 3);
   V3 inv = {safe_div(F(1.0), rd.x), safe_div(F(1.0), rd.y), safe_div(F(1.0), rd.z)};
   V3 lo = bmin - ro, hi = bmax - ro;
   V3 tmin = lo * inv, tmax = hi * inv;
-  float mxx = fmaxf(tmin.x, tmax.x), mxy = fmaxf(tmin.y, tmax.y), mxz = fmaxf(tmin.z, tmax.z);
-  float m1 = fminf(mxx, mxy);
-  float t = fminf(m1, mxz);
+  // tnear = max(max(mn.x, mn.y), mn.z), mn = min(tmin, tmax); tfar likewise
+  V3 mn = {fminf(tmin.x, tmax.x), fminf(tmin.y, tmax.y), fminf(tmin.z, tmax.z)};
+  V3 mx = {fmaxf(tmin.x, tmax.x), fmaxf(tmin.y, tmax.y), fmaxf(tmin.z, tmax.z)};
+  float n1 = fmaxf(mn.x, mn.y), tnear = fmaxf(n1, mn.z);
+  float f1 = fminf(mx.x, mx.y), tfar = fminf(f1, mx.z);
+  bool near = cube && tnear > EPSILON && tnear < tfar;
+  float t = near ? tnear : tfar;
   d_ro = d_ro + d_p;
   d_rd = d_rd + d_p * t;
   float d_t = dot(d_p, rd);
-  float d_m1 = 0.f, d_mxx = 0.f, d_mxy = 0.f, d_mxz = 0.f;
-  min_adj(m1, mxz, d_t, d_m1, d_mxz);
-  min_adj(mxx, mxy, d_m1, d_mxx, d_mxy);
+  float d_1 = 0.f;
+  V3 d_mn = {0.f, 0.f, 0.f}, d_mx = {0.f, 0.f, 0.f};
+  if (near) {
+    max_adj(n1, mn.z, d_t, d_1, d_mn.z);
+    max_adj(mn.x, mn.y, d_1, d_mn.x, d_mn.y);
+  } else {
+    min_adj(f1, mx.z, d_t, d_1, d_mx.z);
+    min_adj(mx.x, mx.y, d_1, d_mx.x, d_mx.y);
+  }
   V3 d_tmin = {0.f, 0.f, 0.f}, d_tmax = {0.f, 0.f, 0.f};
-  max_adj(tmin.x, tmax.x, d_mxx, d_tmin.x, d_tmax.x);
-  max_adj(tmin.y, tmax.y, d_mxy, d_tmin.y, d_tmax.y);
-  max_adj(tmin.z, tmax.z, d_mxz, d_tmin.z, d_tmax.z);
+  min_adj(tmin.x, tmax.x, d_mn.x, d_tmin.x, d_tmax.x);
+  min_adj(tmin.y, tmax.y, d_mn.y, d_tmin.y, d_tmax.y);
+  min_adj(tmin.z, tmax.z, d_mn.z, d_tmin.z, d_tmax.z);
+  max_adj(tmin.x, tmax.x, d_mx.x, d_tmin.x, d_tmax.x);
+  max_adj(tmin.y, tmax.y, d_mx.y, d_tmin.y, d_tmax.y);
+  max_adj(tmin.z, tmax.z, d_mx.z, d_tmin.z, d_tmax.z);
   // tmin = (bmin - ro) * inv; tmax = (bmax - ro) * inv; inv = 1 / rd unless |rd| < 1e-12
   gadd3(G, off, d_tmin * inv);
   gadd3(G, off + 3, d_tmax * inv);
@@ -317,6 +394,221 @@ __device__ void cornell_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V
   if (!(fabsf(rd.x) < F(1e-12))) d_rd.x += -d_inv.x * inv.x * inv.x;
   if (!(fabsf(rd.y) < F(1e-12))) d_rd.y += -d_inv.y * inv.y * inv.y;
   if (!(fabsf(rd.z) < F(1e-12))) d_rd.z += -d_inv.z * inv.z * inv.z;
+}
+
+// The quadrics' common tail (path.cuh quadric_tail): p = from_object(q) +
+// pos, ng = from_object(normalize(cross(dpdu, dpdv))), dpdu =
+// from_object((-2 pi q.y, 2 pi q.x, 0)).  Adds onto d_q and d_dpdv, and the
+// position's share to G.
+__device__ void quadric_tail_adj(int off, V3 q, V3 dpdv, V3 d_p, V3 d_ng, V3 d_dpdu, V3& d_q,
+                                 V3& d_dpdv, float* G) {
+  gadd3(G, off, d_p);
+  d_q = d_q + to_object(d_p);  // from_object's adjoint is to_object
+  V3 dpdu = {F(-TWO_PI) * q.y, F(TWO_PI) * q.x, 0.f};
+  V3 d_cr = {0.f, 0.f, 0.f}, d_du = to_object(d_dpdu);
+  normalize_adj(cross(dpdu, dpdv), to_object(d_ng), d_cr);
+  cross_adj(dpdu, dpdv, d_cr, d_du, d_dpdv);
+  d_q.y += F(-TWO_PI) * d_du.x;
+  d_q.x += F(TWO_PI) * d_du.y;
+}
+
+// cone / cylinder params: p[3], h, r.  t through the clipped quadratic; the
+// cone's dpdv through v = q.z / h.
+__device__ void frustum_hit_adj(const Scene& s, int off, bool cone, V3 ro, V3 rd, V3 d_p, V3 d_ng,
+                                V3 d_dpdu, V3& d_ro, V3& d_rd, float* G) {
+  float hh = P(s, off + 3), r = P(s, off + 4);
+  V3 o, d;
+  float t = cone ? cone_t(s, off, ro, rd, o, d) : cylinder_t(s, off, ro, rd, o, d);
+  float rh = r / hh, k = rh * rh, w = o.z - hh;
+  float a, b, c2;
+  if (cone) {
+    a = d.x * d.x + d.y * d.y - k * d.z * d.z;
+    b = F(2.0) * (d.x * o.x + d.y * o.y - k * d.z * w);
+    c2 = o.x * o.x + o.y * o.y - k * w * w;
+  } else {
+    a = d.x * d.x + d.y * d.y;
+    b = F(2.0) * (d.x * o.x + d.y * o.y);
+    c2 = o.x * o.x + o.y * o.y - r * r;
+  }
+  bool high = clipped_root_is_high(o, d, a, b, c2, -EPSILON, hh);
+  V3 q = o + d * t;
+  float v = q.z / hh, den = F(1.0) - v, inv1mv = 0.f;
+  V3 dpdv = {0.f, 0.f, hh};
+  if (cone) {
+    inv1mv = safe_div(F(1.0), den);
+    dpdv.x = -q.x * inv1mv;
+    dpdv.y = -q.y * inv1mv;
+  }
+  V3 d_q = {0.f, 0.f, 0.f}, d_dpdv = {0.f, 0.f, 0.f};
+  quadric_tail_adj(off, q, dpdv, d_p, d_ng, d_dpdu, d_q, d_dpdv, G);
+  float d_hh = d_dpdv.z, d_r = 0.f;
+  if (cone) {  // dpdv.xy = -q.xy * inv1mv; inv1mv = 1 / (1 - v) unless |1 - v| < 1e-12
+    d_q.x += -d_dpdv.x * inv1mv;
+    d_q.y += -d_dpdv.y * inv1mv;
+    float d_inv = -(d_dpdv.x * q.x + d_dpdv.y * q.y);
+    float d_v = fabsf(den) < F(1e-12) ? 0.f : d_inv * inv1mv * inv1mv;
+    d_q.z += d_v / hh;
+    d_hh += -d_v * v / hh;
+  }
+  // q = o + d * t
+  V3 d_o = d_q, d_d = d_q * t;
+  float d_a = 0.f, d_b = 0.f, d_c = 0.f;
+  quadratic_adj(a, b, c2, high, dot(d_q, d), d_a, d_b, d_c);
+  float bb = F(2.0) * d_b;
+  d_d.x += F(2.0) * d.x * d_a + bb * o.x;
+  d_d.y += F(2.0) * d.y * d_a + bb * o.y;
+  d_o.x += bb * d.x + F(2.0) * o.x * d_c;
+  d_o.y += bb * d.y + F(2.0) * o.y * d_c;
+  if (cone) {  // the k terms; w = o.z - h; k = (r / h)^2
+    float d_k = -d_a * d.z * d.z - bb * d.z * w - d_c * w * w;
+    d_d.z += F(-2.0) * k * d.z * d_a - bb * k * w;
+    float d_w = -bb * k * d.z + F(-2.0) * k * w * d_c;
+    d_o.z += d_w;
+    d_hh -= d_w;
+    float d_rh = F(2.0) * rh * d_k;
+    d_r += d_rh / hh;
+    d_hh += -d_rh * rh / hh;
+  } else {
+    d_r += F(-2.0) * r * d_c;
+  }
+  gadd(G, off + 3, d_hh);
+  gadd(G, off + 4, d_r);
+  ray_to_object_adj(off, d_o, d_d, d_ro, d_rd, G);
+}
+
+// disk params: p[3], r, inner_r.  The normal is constant; r and inner_r only
+// decide the hit.
+__device__ void disk_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_dpdu, V3& d_ro,
+                             V3& d_rd, float* G) {
+  V3 o = to_object(ro - P3(s, off)), d = to_object(rd);
+  float t = -safe_div(o.z, d.z);  // |d.z| > 1e-12 on a hit
+  gadd3(G, off, d_p);
+  V3 d_q = to_object(d_p), d_du = to_object(d_dpdu);
+  d_q.y += F(-TWO_PI) * d_du.x;
+  d_q.x += F(TWO_PI) * d_du.y;
+  // q = o + d * t; t = -o.z / d.z
+  V3 d_o = d_q, d_d = d_q * t;
+  float d_t = dot(d_q, d);
+  d_o.z += -d_t / d.z;
+  d_d.z += -d_t * t / d.z;
+  ray_to_object_adj(off, d_o, d_d, d_ro, d_rd, G);
+}
+
+// hyperboloid params: p[3], p1[3], p2[3], ah, ch.  dpdv turns with
+// phi = atan2 of the hit against the profile point pr = lerp(p1, p2, v).
+__device__ void hyperboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_ng,
+                                    V3 d_dpdu, V3& d_ro, V3& d_rd, float* G) {
+  V3 p1 = P3(s, off + 3), p2 = P3(s, off + 6);
+  float ah = P(s, off + 9), ch = P(s, off + 10);
+  V3 o, d;
+  float t = hyperboloid_t(s, off, ro, rd, o, d);
+  float sxy = d.x * d.x + d.y * d.y, dxo = d.x * o.x + d.y * o.y, oxy = o.x * o.x + o.y * o.y;
+  float a = ah * sxy - ch * d.z * d.z;
+  float b = F(2.0) * (ah * dxo - ch * d.z * o.z);
+  float c2 = ah * oxy - ch * o.z * o.z - F(1.0);
+  bool high = clipped_root_is_high(o, d, a, b, c2, fminf(p1.z, p2.z), fmaxf(p1.z, p2.z));
+  V3 q = o + d * t;
+  float vden = p2.z - p1.z;
+  bool vden_small = fabsf(vden) < F(1e-12);
+  float vden_s = vden_small ? (vden < 0.f ? F(-1e-12) : F(1e-12)) : vden;
+  float v = (q.z - p1.z) / vden_s;
+  V3 pr = p1 * (F(1.0) - v) + p2 * v;
+  float X = pr.x * q.x + pr.y * q.y, Y = pr.x * q.y - q.x * pr.y;
+  float phi = phi_of(X, Y);
+  float sp = sinf(phi), cp = cosf(phi);
+  float dx = p2.x - p1.x, dy = p2.y - p1.y, dz = p2.z - p1.z;
+  V3 dpdv = {dx * cp - dy * sp, dx * sp + dy * cp, dz};
+  V3 d_q = {0.f, 0.f, 0.f}, d_dpdv = {0.f, 0.f, 0.f};
+  quadric_tail_adj(off, q, dpdv, d_p, d_ng, d_dpdu, d_q, d_dpdv, G);
+  V3 d_dd = {d_dpdv.x * cp + d_dpdv.y * sp, -d_dpdv.x * sp + d_dpdv.y * cp, d_dpdv.z};
+  float d_cp = d_dpdv.x * dx + d_dpdv.y * dy, d_sp = -d_dpdv.x * dy + d_dpdv.y * dx;
+  float d_X = 0.f, d_Y = 0.f;
+  atan2_adj(Y, X, d_sp * cp - d_cp * sp, d_Y, d_X);
+  // X = pr.x q.x + pr.y q.y; Y = pr.x q.y - q.x pr.y (pr.z feeds nothing)
+  V3 d_pr = {d_X * q.x + d_Y * q.y, d_X * q.y - d_Y * q.x, 0.f};
+  d_q.x += d_X * pr.x - d_Y * pr.y;
+  d_q.y += d_X * pr.y + d_Y * pr.x;
+  V3 d_p1 = d_pr * (F(1.0) - v) - d_dd, d_p2 = d_pr * v + d_dd;
+  // v = (q.z - p1.z) / (p2.z - p1.z), the denominator kept off 0
+  float d_v = dot(d_pr, p2) - dot(d_pr, p1);
+  float d_num = d_v / vden_s;
+  d_q.z += d_num;
+  d_p1.z -= d_num;
+  if (!vden_small) {
+    float d_den = -d_v * v / vden_s;
+    d_p2.z += d_den;
+    d_p1.z -= d_den;
+  }
+  // q = o + d * t
+  V3 d_o = d_q, d_d = d_q * t;
+  float d_a = 0.f, d_b = 0.f, d_c = 0.f;
+  quadratic_adj(a, b, c2, high, dot(d_q, d), d_a, d_b, d_c);
+  float bb = F(2.0) * d_b;
+  float d_ah = d_a * sxy + bb * dxo + d_c * oxy;
+  float d_ch = -d_a * d.z * d.z - bb * d.z * o.z - d_c * o.z * o.z;
+  d_d.x += F(2.0) * ah * d.x * d_a + bb * ah * o.x;
+  d_d.y += F(2.0) * ah * d.y * d_a + bb * ah * o.y;
+  d_d.z += F(-2.0) * ch * d.z * d_a - bb * ch * o.z;
+  d_o.x += bb * ah * d.x + F(2.0) * ah * o.x * d_c;
+  d_o.y += bb * ah * d.y + F(2.0) * ah * o.y * d_c;
+  d_o.z += -bb * ch * d.z + F(-2.0) * ch * o.z * d_c;
+  gadd3(G, off + 3, d_p1);
+  gadd3(G, off + 6, d_p2);
+  gadd(G, off + 9, d_ah);
+  gadd(G, off + 10, d_ch);
+  ray_to_object_adj(off, d_o, d_d, d_ro, d_rd, G);
+}
+
+// paraboloid params: p[3], z0, z1, r.  zmin/zmax take JAX's tie rule; k and
+// dpdv read them.
+__device__ void paraboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_ng,
+                                   V3 d_dpdu, V3& d_ro, V3& d_rd, float* G) {
+  float z0 = P(s, off + 3), z1 = P(s, off + 4), r = P(s, off + 5);
+  V3 o, d;
+  float t = paraboloid_t(s, off, ro, rd, o, d);
+  float zmin = fminf(z0, z1), zmax = fmaxf(z0, z1);
+  float rr = r * r;
+  bool rr_small = fabsf(rr) < F(1e-12);
+  float rr_s = rr_small ? F(1e-12) : rr;  // r * r >= 0
+  float k = zmax / rr_s;
+  float sxy = d.x * d.x + d.y * d.y, dxo = d.x * o.x + d.y * o.y, oxy = o.x * o.x + o.y * o.y;
+  float a = k * sxy, b = F(2.0) * k * dxo - d.z, c2 = k * oxy - o.z;
+  bool high = clipped_root_is_high(o, d, a, b, c2, zmin, zmax);
+  V3 q = o + d * t;
+  bool hz_small = fabsf(q.z) < F(1e-8);
+  float hz = hz_small ? F(1e-8) : q.z;
+  float dz = zmax - zmin, den = F(2.0) * hz;
+  V3 dpdv = {dz * q.x / den, dz * q.y / den, dz};
+  V3 d_q = {0.f, 0.f, 0.f}, d_dpdv = {0.f, 0.f, 0.f};
+  quadric_tail_adj(off, q, dpdv, d_p, d_ng, d_dpdu, d_q, d_dpdv, G);
+  // dpdv.xy = dz q.xy / (2 hz)
+  float ax = d_dpdv.x / den, ay = d_dpdv.y / den;
+  float d_dz = d_dpdv.z + ax * q.x + ay * q.y;
+  d_q.x += ax * dz;
+  d_q.y += ay * dz;
+  if (!hz_small) d_q.z += F(2.0) * -(ax * dpdv.x + ay * dpdv.y);
+  // q = o + d * t
+  V3 d_o = d_q, d_d = d_q * t;
+  float d_a = 0.f, d_b = 0.f, d_c = 0.f;
+  quadratic_adj(a, b, c2, high, dot(d_q, d), d_a, d_b, d_c);
+  float kk = F(2.0) * k;
+  float d_k = d_a * sxy + F(2.0) * d_b * dxo + d_c * oxy;
+  d_d.x += F(2.0) * k * d.x * d_a + d_b * kk * o.x;
+  d_d.y += F(2.0) * k * d.y * d_a + d_b * kk * o.y;
+  d_d.z -= d_b;
+  d_o.x += d_b * kk * d.x + F(2.0) * k * o.x * d_c;
+  d_o.y += d_b * kk * d.y + F(2.0) * k * o.y * d_c;
+  d_o.z -= d_c;
+  // k = zmax / (r * r), the denominator kept off 0
+  float d_zmax = d_dz + d_k / rr_s, d_zmin = -d_dz, d_r = 0.f;
+  if (!rr_small) d_r += F(2.0) * r * (-d_k * k / rr_s);
+  float d_z0 = 0.f, d_z1 = 0.f;
+  max_adj(z0, z1, d_zmax, d_z0, d_z1);
+  min_adj(z0, z1, d_zmin, d_z0, d_z1);
+  gadd(G, off + 3, d_z0);
+  gadd(G, off + 4, d_z1);
+  gadd(G, off + 5, d_r);
+  ray_to_object_adj(off, d_o, d_d, d_ro, d_rd, G);
 }
 
 // ------------------------------------------------------------ bounce ----
@@ -424,10 +716,19 @@ __device__ void bounce_adj(const Scene& s, const PathState& st, const Bounce& v,
   }
   V3 d_ng = v.into ? d_n : -d_n;  // n = into ? ng : -ng
 
-  int cat = __ldg(s.obj + 5 * v.obj);
-  if (cat == SPHERE) sphere_hit_adj(s, v.off, st.ro, st.rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G);
-  else if (cat == RECTANGLE) rect_hit_adj(s, v.off, st.ro, st.rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G);
-  else cornell_hit_adj(s, v.off, st.ro, st.rd, d_p, d_ro, d_rd, G);
+  const int cat = obj_cat(s, v.obj);
+  const V3 ro = st.ro, rd = st.rd;
+  switch (cat) {
+    case SPHERE: sphere_hit_adj(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G); break;
+    case RECTANGLE: rect_hit_adj(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G); break;
+    case CUBE: case CORNELLBOX: box_hit_adj(s, v.off, cat == CUBE, ro, rd, d_p, d_ro, d_rd, G); break;
+    case CONE: case CYLINDER:
+      frustum_hit_adj(s, v.off, cat == CONE, ro, rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G);
+      break;
+    case DISK: disk_hit_adj(s, v.off, ro, rd, d_p, d_dpdu, d_ro, d_rd, G); break;
+    case HYPERBOLOID: hyperboloid_hit_adj(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G); break;
+    case PARABOLOID: paraboloid_hit_adj(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G); break;
+  }
 }
 
 // ------------------------------------------------------------- pixel ----

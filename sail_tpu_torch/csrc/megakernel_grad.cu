@@ -12,10 +12,13 @@
 // gradient array of the scene's n_params floats and up to MAX_GRAD_BOUNCES
 // stored states; their indices are run-time parameter offsets, so they live
 // in local memory (L1-cached) and every gradient add is a load and a store.
-// Measured on an H100 SXM at 700 W (1024², 64 spp, 5 bounces, config 2):
-// 203 registers (one 256-thread block per SM), a 1,760-byte stack frame, no
-// spills, 330-339 ms, about 12x K1; the SM clock stays at its 1,980 MHz
-// maximum and the card draws ~210 W of 700.
+// The array's size is a template parameter: the kernel is built for the caps
+// in CAPS (352, 1,024 and 4,096 floats) and the wrapper runs the smallest
+// that holds the scene, so a few-object scene keeps a small frame and the
+// 256-sphere scene (3,375 parameters) still fits.  The warps' partial sums
+// sit in dynamic shared memory (8 x n_params floats, 108 KB at 3,375, above
+// the 48 KB default only after cudaFuncSetAttribute).  Every shape has its
+// adjoint (adjoint.cuh); K2 folds without the cull, which changes no value.
 //
 // Design (adjoint.cuh): one thread per pixel.  Per sample a forward sweep
 // with K1's own code stores each bounce's input state; the reverse sweep
@@ -35,14 +38,23 @@ namespace {
 
 constexpr int BLOCK_X = 16, BLOCK_Y = 16, THREADS = BLOCK_X * BLOCK_Y, WARPS = THREADS / 32;
 
-__global__ void __launch_bounds__(THREADS)
+// The gradient-array sizes K2 is built for: the wrapper takes the smallest
+// that holds the scene's parameters.  352 holds every scene of a few
+// objects; 4,096 the 256-sphere scene (13 N + 47 = 3,375 parameters).
+constexpr int CAPS[] = {352, 1024, 4096};
+constexpr int N_CAPS = sizeof(CAPS) / sizeof(CAPS[0]);
+
+// One block per SM asked for: ptxas then gives K2 the 219 registers it needs;
+// left alone it capped the kernel at 128 with spills, 23% slower (an H100).
+template <int CAP>
+__global__ void __launch_bounds__(THREADS, 1)
     render_grad_kernel(Scene s, int n_params, const float* __restrict__ gx,
                        const float* __restrict__ gy, const float* __restrict__ gz,
                        float* __restrict__ rows, int height, int width, int spp, uint32_t seed,
                        uint32_t sample0, int max_bounces, int row0, int image_height) {
   int col = blockIdx.x * BLOCK_X + threadIdx.x;
   int lrow = blockIdx.y * BLOCK_Y + threadIdx.y;
-  float G[MAX_PARAMS];
+  float G[CAP];
   for (int p = 0; p < n_params; ++p) G[p] = 0.f;
   if (col < width && lrow < height) {  // threads past the edge add zeros
     size_t idx = (size_t)lrow * (size_t)width + (size_t)col;
@@ -54,20 +66,36 @@ __global__ void __launch_bounds__(THREADS)
                   (uint32_t)col, sx_scale, sy_scale, G);
     }
   }
-  __shared__ float part[WARPS][MAX_PARAMS];
+  // the warps' partial sums, WARPS rows of n_params floats (dynamic)
+  extern __shared__ float part[];
   int tid = threadIdx.y * BLOCK_X + threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int p = 0; p < n_params; ++p) {
     float v = G[p];
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) part[warp][p] = v;
+    if (lane == 0) part[warp * n_params + p] = v;
   }
   __syncthreads();
   float* row = rows + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * (size_t)n_params;
   for (int p = tid; p < n_params; p += THREADS) {
     float v = 0.f;
-    for (int w = 0; w < WARPS; ++w) v += part[w][p];
+    for (int w = 0; w < WARPS; ++w) v += part[w * n_params + p];
     row[p] = v;
   }
+}
+
+template <int CAP>
+int launch_grad(dim3 grid, dim3 block, cudaStream_t stream, Scene s, int n_params,
+                const float* gx, const float* gy, const float* gz, float* rows, int height,
+                int width, int spp, uint32_t seed, uint32_t sample0, int max_bounces, int row0,
+                int image_height) {
+  size_t smem = (size_t)WARPS * (size_t)n_params * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(render_grad_kernel<CAP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  render_grad_kernel<CAP><<<grid, block, smem, stream>>>(s, n_params, gx, gy, gz, rows, height,
+                                                         width, spp, seed, sample0, max_bounces,
+                                                         row0, image_height);
+  return (int)cudaGetLastError();
 }
 
 // out[p] = sum over r of rows[r][p]: one block per parameter, each thread a
@@ -90,34 +118,50 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace
 
-// K2's compile-time bounds: block columns, block rows, most parameters, most
-// bounces.  The wrapper raises above them.
+// K2's compile-time bounds: block columns, block rows, most bounces, the
+// number of gradient-array sizes, then the sizes.  The wrapper raises above
+// them.
 extern "C" int sail_grad_limits(int* out) {
   out[0] = BLOCK_X;
   out[1] = BLOCK_Y;
-  out[2] = MAX_PARAMS;
-  out[3] = MAX_GRAD_BOUNCES;
+  out[2] = MAX_GRAD_BOUNCES;
+  out[3] = N_CAPS;
+  for (int i = 0; i < N_CAPS; ++i) out[4 + i] = CAPS[i];
   return 0;
 }
 
 // Plain C entry points (bound with ctypes); `table` is the device int32 scene
 // table (path.cuh make_scene).  `rows` holds ceil(W/16) * ceil(H/16) rows of
-// n_params floats, one per thread block in launch order.  Each launches on
-// `stream`, does not synchronise, and returns the launch's cudaError_t.
-extern "C" int sail_render_grad_block(const float* params, const int* table, int n_obj, int n_mat,
-                                      int n_tex, int n_light, int cam, int n_params,
+// n_params floats, one per thread block in launch order; `cap` is one of
+// CAPS, at least n_params.  Each launches on `stream`, does not synchronise,
+// and returns the launch's cudaError_t.
+extern "C" int sail_render_grad_block(const float* params, const int* table, int n_obj,
+                                      int n_plain, int n_groups, int n_mat, int n_tex,
+                                      int n_light, int cam, int n_params, int cap,
                                       const float* gx, const float* gy, const float* gz,
                                       float* rows, int height, int width, int spp, int seed,
                                       int sample0, int max_bounces, int row0, int image_height,
                                       void* stream) {
-  if (n_params > MAX_PARAMS || max_bounces > MAX_GRAD_BOUNCES) return (int)cudaErrorInvalidValue;
-  Scene s = make_scene(params, table, n_obj, n_mat, n_tex, n_light, cam);
+  if (n_params > cap || max_bounces > MAX_GRAD_BOUNCES) return (int)cudaErrorInvalidValue;
+  Scene s = make_scene(params, table, n_obj, n_plain, n_groups, n_mat, n_tex, n_light, cam);
   dim3 block(BLOCK_X, BLOCK_Y);
   dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y);
-  render_grad_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      s, n_params, gx, gy, gz, rows, height, width, spp, (uint32_t)seed, (uint32_t)sample0,
-      max_bounces, row0, image_height);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (cap) {
+    case CAPS[0]:
+      return launch_grad<CAPS[0]>(grid, block, st, s, n_params, gx, gy, gz, rows, height, width,
+                                  spp, (uint32_t)seed, (uint32_t)sample0, max_bounces, row0,
+                                  image_height);
+    case CAPS[1]:
+      return launch_grad<CAPS[1]>(grid, block, st, s, n_params, gx, gy, gz, rows, height, width,
+                                  spp, (uint32_t)seed, (uint32_t)sample0, max_bounces, row0,
+                                  image_height);
+    case CAPS[2]:
+      return launch_grad<CAPS[2]>(grid, block, st, s, n_params, gx, gy, gz, rows, height, width,
+                                  spp, (uint32_t)seed, (uint32_t)sample0, max_bounces, row0,
+                                  image_height);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int sail_reduce_grad_rows(const float* rows, int n_rows, int n_params, float* out,

@@ -1,13 +1,15 @@
 // Device code shared by the render megakernels: K1 (megakernel.cu, the
 // forward) and K2 (megakernel_grad.cu, the backward).  Vector math, the
 // counter-based RNG, the fastmath polynomials, the scene table, the
-// intersections of the ported shapes, the matte BSDF, and one path bounce
-// (`bounce`) with every intermediate value the adjoint reads (`Bounce`).
+// intersections and bound boxes of the nine shape categories, the closest-hit
+// fold (with its opt-in cluster cull) and the shadow scan, the matte BSDF, and
+// one path bounce (`bounce`) with every intermediate value the adjoint reads
+// (`Bounce`).
 //
 // Numerics follow the plain torch version (render/integrator.py) operation
 // by operation: build with -fmad=false and without --use_fast_math; rsqrt is
 // 1.0f/sqrtf; atan2/acos are the repo's polynomials (core/fastmath.py);
-// cosf/sinf are full precision.  Constants are written as double literals
+// cosf/sinf (the BSDF sample, the hyperboloid's tangent) are full precision.  Constants are written as double literals
 // cast to float, as Python rounds them.  The RNG runs in uint32_t, which is
 // bit-identical to the JAX package's int32 encoding.  K2's forward sweep runs
 // this same code, so its paths are K1's paths bit for bit.
@@ -28,7 +30,8 @@ constexpr float EPSILON = F(1e-5);
 constexpr float MAX_DISTANCE = F(1e5);
 
 // constants.py category ids
-constexpr int SPHERE = 2, RECTANGLE = 3, CORNELLBOX = 9;
+constexpr int CUBE = 1, SPHERE = 2, RECTANGLE = 3, CONE = 4, CYLINDER = 5, DISK = 6,
+              HYPERBOLOID = 7, PARABOLOID = 8, CORNELLBOX = 9;
 constexpr int MATTE = 1;  // the other material row is MIRROR
 constexpr int TAG_PIXEL_JITTER = 0, TAG_BSDF = 1, TAG_LIGHT_U = 3;
 
@@ -133,28 +136,42 @@ __device__ __forceinline__ float acos_poly(float x) {
 }
 
 // --------------------------------------------------------------- scene ----
+constexpr int OBJ_INTS = 6;  // ints per object row of the table
+constexpr int CLUSTER = 8;   // objects per bound box of the opt-in cull
+
 struct Scene {
   const float* __restrict__ p;
-  const int* __restrict__ obj;    // 5 ints per object
+  const int* __restrict__ obj;    // OBJ_INTS ints per object, in fold order
+  const int* __restrict__ group;  // 2 ints per batched group
   const int* __restrict__ mat;    // 2 ints per material row
   const int* __restrict__ tex;    // 2 ints per texture row
   const int* __restrict__ light;  // 3 ints per light
-  int n_obj, n_light, cam;
+  const float* box;               // 6 floats per cluster (the cull's bound boxes), or null
+  int n_obj, n_plain, n_groups, n_light, cam;
 };
 
-// The scene over the device int32 table: 5 ints per object (category, param
-// offset, material row, texture row, emissive), then 2 per material row
-// (category, offset), 2 per texture row (category, offset) and 3 per light
-// (category, object, param offset).  Built on the host by the C entries.
-inline Scene make_scene(const float* params, const int* table, int n_obj, int n_mat, int n_tex,
-                        int n_light, int cam) {
+// The scene over the device int32 table.  Object rows come in the closest-hit
+// fold order: the objects of small categories in scene order (n_plain rows),
+// then each batched group (BATCH_THRESHOLD or more objects of one category)
+// in the order its category first appears, its objects in scene order.  Each
+// row is (category, param offset, material row, texture row, emissive, scene
+// index).  Then 2 ints per batched group (first row, count), 2 per material
+// row (category, offset), 2 per texture row (category, offset) and 3 per
+// light (category, table row of its object, param offset).  Built on the
+// host by the C entries; `box` is set by a kernel that culls.
+inline Scene make_scene(const float* params, const int* table, int n_obj, int n_plain,
+                        int n_groups, int n_mat, int n_tex, int n_light, int cam) {
   Scene s;
   s.p = params;
   s.obj = table;
-  s.mat = s.obj + 5 * n_obj;
+  s.group = s.obj + OBJ_INTS * n_obj;
+  s.mat = s.group + 2 * n_groups;
   s.tex = s.mat + 2 * n_mat;
   s.light = s.tex + 2 * n_tex;
+  s.box = nullptr;
   s.n_obj = n_obj;
+  s.n_plain = n_plain;
+  s.n_groups = n_groups;
   s.n_light = n_light;
   s.cam = cam;
   return s;
@@ -162,6 +179,18 @@ inline Scene make_scene(const float* params, const int* table, int n_obj, int n_
 
 __device__ __forceinline__ float P(const Scene& s, int i) { return __ldg(s.p + i); }
 __device__ __forceinline__ V3 P3(const Scene& s, int i) { return {P(s, i), P(s, i + 1), P(s, i + 2)}; }
+__device__ __forceinline__ int obj_cat(const Scene& s, int row) { return __ldg(s.obj + OBJ_INTS * row); }
+__device__ __forceinline__ int obj_off(const Scene& s, int row) { return __ldg(s.obj + OBJ_INTS * row + 1); }
+
+// Where a row's emission starts: after its shape's own fields.
+__device__ __forceinline__ int emission_offset(int cat) {
+  switch (cat) {
+    case SPHERE: return 4;
+    case CONE: case CYLINDER: case DISK: return 5;
+    case HYPERBOLOID: return 11;
+    default: return 6;  // CUBE, RECTANGLE, CORNELLBOX, PARABOLOID
+  }
+}
 
 struct Hit {
   float t;
@@ -270,7 +299,7 @@ __device__ Hit rect_hit(const Scene& s, int off, V3 ro, V3 rd) {
   return h;
 }
 
-// ---------------------------------------------------------- cornellbox ----
+// ---------------------------------------------------------------- boxes ----
 __device__ __forceinline__ void slab(V3 ro, V3 rd, V3 bmin, V3 bmax, float& tnear, float& tfar) {
   V3 inv = {safe_div(F(1.0), rd.x), safe_div(F(1.0), rd.y), safe_div(F(1.0), rd.z)};
   V3 tmin = (bmin - ro) * inv;
@@ -279,6 +308,58 @@ __device__ __forceinline__ void slab(V3 ro, V3 rd, V3 bmin, V3 bmax, float& tnea
   tfar = fminf(fminf(fmaxf(tmin.x, tmax.x), fmaxf(tmin.y, tmax.y)), fmaxf(tmin.z, tmax.z));
 }
 
+__device__ __forceinline__ float face_axis(float h, float lo, float hi) {
+  const float eps = F(1e-4);
+  return h < lo + eps ? F(-1.0) : (h > hi - eps ? F(1.0) : 0.f);
+}
+
+// Face normal by nearest-bound comparison; priority x > y > z, default +z.
+__device__ __forceinline__ V3 box_normal(V3 p, V3 bmin, V3 bmax) {
+  float nx = face_axis(p.x, bmin.x, bmax.x);
+  float ny = face_axis(p.y, bmin.y, bmax.y);
+  float nz = face_axis(p.z, bmin.z, bmax.z);
+  bool hx = nx != 0.f, hy = ny != 0.f, hz = nz != 0.f;
+  return V3{hx ? nx : 0.f, (!hx && hy) ? ny : 0.f, (!hx && !hy) ? (hz ? nz : F(1.0)) : 0.f};
+}
+
+__device__ __forceinline__ V3 box_dpdu(V3 n) {
+  bool use_x = fabsf(n.x) < F(0.5);
+  return use_x ? cross(n, V3{1.f, 0.f, 0.f}) : cross(n, V3{0.f, 1.f, 0.f});
+}
+
+__device__ __forceinline__ void box_uv(V3 p, V3 n, V3 bmin, V3 bmax, float& u, float& v) {
+  V3 ext = bmax - bmin;
+  V3 rel = {safe_div(p.x - bmin.x, ext.x), safe_div(p.y - bmin.y, ext.y), safe_div(p.z - bmin.z, ext.z)};
+  bool on_x = fabsf(n.x) > F(0.5), on_y = fabsf(n.y) > F(0.5);
+  u = on_x ? rel.y : rel.x;
+  v = on_x ? rel.z : (on_y ? rel.z : rel.y);
+}
+
+// ----------------------------------------------------------------- cube ----
+// params: bmin[3], bmax[3], emission[3], reverse
+__device__ __forceinline__ float cube_t(const Scene& s, int off, V3 ro, V3 rd) {
+  float tnear, tfar;
+  slab(ro, rd, P3(s, off), P3(s, off + 3), tnear, tfar);
+  bool outside = tnear > EPSILON && tnear < tfar;
+  float t = outside ? tnear : tfar;
+  bool valid = tnear < tfar && t > EPSILON;
+  return valid ? t : MAX_DISTANCE;
+}
+
+__device__ Hit cube_hit(const Scene& s, int off, V3 ro, V3 rd) {
+  V3 bmin = P3(s, off), bmax = P3(s, off + 3);
+  Hit h;
+  h.t = cube_t(s, off, ro, rd);
+  h.p = ro + rd * h.t;
+  h.ng = box_normal(h.p, bmin, bmax);
+  h.dpdu = box_dpdu(h.ng);
+  box_uv(h.p, h.ng, bmin, bmax, h.u, h.v);
+  h.sc = {0.f, 0.f, 0.f};
+  h.use_sc = false;
+  return h;
+}
+
+// ---------------------------------------------------------- cornellbox ----
 __device__ __forceinline__ float cornell_t(const Scene& s, int off, V3 ro, V3 rd) {
   float tnear, tfar;
   slab(ro, rd, P3(s, off), P3(s, off + 3), tnear, tfar);
@@ -286,23 +367,13 @@ __device__ __forceinline__ float cornell_t(const Scene& s, int off, V3 ro, V3 rd
   return valid ? tfar : MAX_DISTANCE;
 }
 
-__device__ __forceinline__ float face_axis(float h, float lo, float hi) {
-  const float eps = F(1e-4);
-  return h < lo + eps ? F(-1.0) : (h > hi - eps ? F(1.0) : 0.f);
-}
-
 __device__ Hit cornell_hit(const Scene& s, int off, V3 ro, V3 rd) {
   V3 bmin = P3(s, off), bmax = P3(s, off + 3);
   Hit h;
   h.t = cornell_t(s, off, ro, rd);
   V3 p = ro + rd * h.t;
-  float nx = face_axis(p.x, bmin.x, bmax.x);
-  float ny = face_axis(p.y, bmin.y, bmax.y);
-  float nz = face_axis(p.z, bmin.z, bmax.z);
-  bool hx = nx != 0.f, hy = ny != 0.f, hz = nz != 0.f;
-  V3 n = -V3{hx ? nx : 0.f, (!hx && hy) ? ny : 0.f, (!hx && !hy) ? (hz ? nz : F(1.0)) : 0.f};
-  bool use_x = fabsf(n.x) < F(0.5);
-  h.dpdu = use_x ? cross(n, V3{1.f, 0.f, 0.f}) : cross(n, V3{0.f, 1.f, 0.f});
+  V3 n = -box_normal(p, bmin, bmax);
+  h.dpdu = box_dpdu(n);
   const float eps = F(1e-4);
   // left GREEN, right BLUE, floor/ceiling/front WHITE, back BLACK
   if (p.x < bmin.x + eps) h.sc = {F(0.25), F(0.75), F(0.25)};
@@ -310,54 +381,367 @@ __device__ Hit cornell_hit(const Scene& s, int off, V3 ro, V3 rd) {
   else if (p.y < bmin.y + eps || p.y > bmax.y - eps || p.z > bmin.z + eps) h.sc = {1.f, 1.f, 1.f};
   else h.sc = {0.f, 0.f, 0.f};
   h.use_sc = true;
-  V3 ext = bmax - bmin;
-  V3 rel = {safe_div(p.x - bmin.x, ext.x), safe_div(p.y - bmin.y, ext.y), safe_div(p.z - bmin.z, ext.z)};
-  bool on_x = fabsf(n.x) > F(0.5), on_y = fabsf(n.y) > F(0.5);
-  h.u = on_x ? rel.y : rel.x;
-  h.v = on_x ? rel.z : (on_y ? rel.z : rel.y);
+  box_uv(p, n, bmin, bmax, h.u, h.v);
   h.p = p;
   h.ng = n;
   return h;
 }
 
-// ------------------------------------------------- scene-level queries ----
-__device__ __forceinline__ float object_t(const Scene& s, int i, V3 ro, V3 rd) {
-  int cat = __ldg(s.obj + 5 * i), off = __ldg(s.obj + 5 * i + 1);
-  V3 a, b;
+// ------------------------------------------------------- the quadrics ----
+// Nearest root whose hit lies in z in [zlo, zhi], else the far root (cone,
+// cylinder, hyperboloid, paraboloid).
+__device__ __forceinline__ float clipped_quadratic(V3 o, V3 d, float a, float b, float c2, float zlo,
+                                                   float zhi) {
+  float t1, t2;
+  bool ok = quadratic(a, b, c2, t1, t2);
+  ok = ok && t2 >= -EPSILON;
+  float t1c = t1 < EPSILON ? t2 : t1;
+  float z1 = o.z + d.z * t1c;
+  bool in1 = z1 >= zlo && z1 <= zhi;
+  float z2 = o.z + d.z * t2;
+  bool in2 = z2 >= zlo && z2 <= zhi && t1c != t2;
+  float t = in1 ? t1c : t2;
+  bool valid = ok && (in1 || in2) && t < MAX_DISTANCE && t >= EPSILON;
+  return valid ? t : MAX_DISTANCE;
+}
+
+__device__ __forceinline__ float phi_of(float x, float y) {
+  float phi = atan2_poly(y, x);
+  return phi < 0.f ? phi + F(TWO_PI) : phi;
+}
+
+// cone / cylinder params: p[3], h, r, emission[3], reverse
+__device__ __forceinline__ float cone_t(const Scene& s, int off, V3 ro, V3 rd, V3& o, V3& d) {
+  float hh = P(s, off + 3), r = P(s, off + 4);
+  o = to_object(ro - P3(s, off));
+  d = to_object(rd);
+  float rh = r / hh;
+  float k = rh * rh;
+  float a = d.x * d.x + d.y * d.y - k * d.z * d.z;
+  float b = F(2.0) * (d.x * o.x + d.y * o.y - k * d.z * (o.z - hh));
+  float c2 = o.x * o.x + o.y * o.y - k * (o.z - hh) * (o.z - hh);
+  return clipped_quadratic(o, d, a, b, c2, -EPSILON, hh);
+}
+
+__device__ __forceinline__ float cylinder_t(const Scene& s, int off, V3 ro, V3 rd, V3& o, V3& d) {
+  float hh = P(s, off + 3), r = P(s, off + 4);
+  o = to_object(ro - P3(s, off));
+  d = to_object(rd);
+  float a = d.x * d.x + d.y * d.y;
+  float b = F(2.0) * (d.x * o.x + d.y * o.y);
+  float c2 = o.x * o.x + o.y * o.y - r * r;
+  return clipped_quadratic(o, d, a, b, c2, -EPSILON, hh);
+}
+
+// The tail shared by the quadrics' hits: p, ng = normalize(dpdu x dpdv) and
+// the world tangent from the object-space hit q.
+__device__ __forceinline__ void quadric_tail(Hit& h, V3 q, V3 dpdv, V3 pos) {
+  V3 dpdu = {F(-TWO_PI) * q.y, F(TWO_PI) * q.x, 0.f};
+  h.ng = from_object(normalize(cross(dpdu, dpdv)));
+  h.dpdu = from_object(dpdu);
+  h.p = from_object(q) + pos;
+  h.sc = {0.f, 0.f, 0.f};
+  h.use_sc = false;
+}
+
+__device__ Hit frustum_hit(const Scene& s, int off, int cat, V3 ro, V3 rd) {
+  V3 o, d;
+  Hit h;
+  h.t = cat == CONE ? cone_t(s, off, ro, rd, o, d) : cylinder_t(s, off, ro, rd, o, d);
+  float hh = P(s, off + 3);
+  V3 q = o + d * h.t;
+  h.u = phi_of(q.x, q.y) / F(TWO_PI);
+  h.v = q.z / hh;
+  V3 dpdv = {0.f, 0.f, hh};
+  if (cat == CONE) {
+    float inv1mv = safe_div(F(1.0), F(1.0) - h.v);
+    dpdv.x = -q.x * inv1mv;
+    dpdv.y = -q.y * inv1mv;
+  }
+  quadric_tail(h, q, dpdv, P3(s, off));
+  return h;
+}
+
+// disk params: p[3], r, inner_r, emission[3], reverse
+__device__ __forceinline__ float disk_t(const Scene& s, int off, V3 ro, V3 rd, V3& q) {
+  float r = P(s, off + 3), ir = P(s, off + 4);
+  V3 o = to_object(ro - P3(s, off)), d = to_object(rd);
+  float t = -safe_div(o.z, d.z);
+  q = o + d * t;
+  float dist2 = q.x * q.x + q.y * q.y;
+  bool valid = fabsf(d.z) > F(1e-12) && t > 0.f && t < MAX_DISTANCE && dist2 <= r * r &&
+               dist2 >= ir * ir;
+  return valid ? t : MAX_DISTANCE;
+}
+
+__device__ Hit disk_hit(const Scene& s, int off, V3 ro, V3 rd) {
+  V3 q;
+  Hit h;
+  h.t = disk_t(s, off, ro, rd, q);
+  float r = P(s, off + 3), ir = P(s, off + 4);
+  h.u = phi_of(q.x, q.y) / F(TWO_PI);
+  float r_hit = sqrtf(q.x * q.x + q.y * q.y);
+  h.v = F(1.0) - safe_div(r_hit - ir, r - ir);
+  V3 dpdu = {F(-TWO_PI) * q.y, F(TWO_PI) * q.x, 0.f};
+  h.ng = from_object(V3{0.f, 0.f, F(1.0)});  // local +z == world +y
+  h.dpdu = from_object(dpdu);
+  h.p = from_object(q) + P3(s, off);
+  h.sc = {0.f, 0.f, 0.f};
+  h.use_sc = false;
+  return h;
+}
+
+// hyperboloid params: p[3], p1[3], p2[3], ah, ch, emission[3], reverse
+__device__ __forceinline__ float hyperboloid_t(const Scene& s, int off, V3 ro, V3 rd, V3& o, V3& d) {
+  float ah = P(s, off + 9), ch = P(s, off + 10);
+  float z1 = P(s, off + 5), z2 = P(s, off + 8);
+  o = to_object(ro - P3(s, off));
+  d = to_object(rd);
+  float a = ah * (d.x * d.x + d.y * d.y) - ch * d.z * d.z;
+  float b = F(2.0) * (ah * (d.x * o.x + d.y * o.y) - ch * d.z * o.z);
+  float c2 = ah * (o.x * o.x + o.y * o.y) - ch * o.z * o.z - F(1.0);
+  return clipped_quadratic(o, d, a, b, c2, fminf(z1, z2), fmaxf(z1, z2));
+}
+
+__device__ Hit hyperboloid_hit(const Scene& s, int off, V3 ro, V3 rd) {
+  V3 o, d;
+  Hit h;
+  h.t = hyperboloid_t(s, off, ro, rd, o, d);
+  V3 p1 = P3(s, off + 3), p2 = P3(s, off + 6);
+  V3 q = o + d * h.t;
+  h.v = safe_div(q.z - p1.z, p2.z - p1.z);
+  V3 pr = p1 * (F(1.0) - h.v) + p2 * h.v;
+  float phi = phi_of(pr.x * q.x + pr.y * q.y, pr.x * q.y - q.x * pr.y);
+  h.u = phi / F(TWO_PI);
+  float sin_p = sinf(phi), cos_p = cosf(phi);
+  float dx = p2.x - p1.x, dy = p2.y - p1.y, dz = p2.z - p1.z;
+  quadric_tail(h, q, V3{dx * cos_p - dy * sin_p, dx * sin_p + dy * cos_p, dz}, P3(s, off));
+  return h;
+}
+
+// paraboloid params: p[3], z0, z1, r, emission[3], reverse
+__device__ __forceinline__ float paraboloid_t(const Scene& s, int off, V3 ro, V3 rd, V3& o, V3& d) {
+  float z0 = P(s, off + 3), z1 = P(s, off + 4), r = P(s, off + 5);
+  o = to_object(ro - P3(s, off));
+  d = to_object(rd);
+  float zmin = fminf(z0, z1), zmax = fmaxf(z0, z1);
+  float k = safe_div(zmax, r * r);
+  float a = k * (d.x * d.x + d.y * d.y);
+  float b = F(2.0) * k * (d.x * o.x + d.y * o.y) - d.z;
+  float c2 = k * (o.x * o.x + o.y * o.y) - o.z;
+  return clipped_quadratic(o, d, a, b, c2, zmin, zmax);
+}
+
+__device__ Hit paraboloid_hit(const Scene& s, int off, V3 ro, V3 rd) {
+  V3 o, d;
+  Hit h;
+  h.t = paraboloid_t(s, off, ro, rd, o, d);
+  float z0 = P(s, off + 3), z1 = P(s, off + 4);
+  float zmin = fminf(z0, z1), zmax = fmaxf(z0, z1);
+  V3 q = o + d * h.t;
+  h.u = phi_of(q.x, q.y) / F(TWO_PI);
+  h.v = safe_div(q.z - zmin, zmax - zmin);
+  float hz = fabsf(q.z) < F(1e-8) ? F(1e-8) : q.z;
+  float dz = zmax - zmin;
+  quadric_tail(h, q, V3{dz * q.x / (F(2.0) * hz), dz * q.y / (F(2.0) * hz), dz}, P3(s, off));
+  return h;
+}
+
+// ----------------------------------------------------------- bound box ----
+// Conservative world AABB of one object (comparisons only, no gradient).
+// Degenerate axes are padded relative to the coordinate's magnitude, so a
+// flat rectangle or a disk survives the strict slab test.
+__device__ void object_aabb(const Scene& s, int cat, int off, V3& lo, V3& hi) {
+  V3 p = P3(s, off);
   switch (cat) {
-    case SPHERE: return sphere_t(s, off, ro, rd, a, b);
-    case RECTANGLE: return rect_t(s, off, rect_frame(s, off), ro, rd, a);
-    case CORNELLBOX: return cornell_t(s, off, ro, rd);
+    case CUBE: case RECTANGLE: case CORNELLBOX: {
+      V3 b1 = P3(s, off + 3);
+      float mag = fmaxf(fmaxf(fabsf(p.x), fabsf(b1.x)),
+                        fmaxf(fmaxf(fabsf(p.y), fabsf(b1.y)), fmaxf(fabsf(p.z), fabsf(b1.z))));
+      float eps = F(1e-4) * (F(1.0) + mag);
+      lo = p - V3{eps, eps, eps};
+      hi = b1 + V3{eps, eps, eps};
+      return;
+    }
+    case SPHERE: {
+      float r = P(s, off + 3);
+      lo = p - V3{r, r, r};
+      hi = p + V3{r, r, r};
+      return;
+    }
+    case CONE: case CYLINDER: {
+      float hh = P(s, off + 3), r = P(s, off + 4);
+      lo = p + V3{-r, F(0.0) * hh, -r};
+      hi = p + V3{r, hh, r};
+      return;
+    }
+    case DISK: {
+      float r = P(s, off + 3), eps = F(1e-4) * (F(1.0) + fabsf(p.y));
+      lo = p + V3{-r, -eps, -r};
+      hi = p + V3{r, eps, r};
+      return;
+    }
+    case PARABOLOID: {
+      float z0 = P(s, off + 3), z1 = P(s, off + 4), r = P(s, off + 5);
+      float zmax = fmaxf(z0, z1), zmin = fminf(fminf(z0, z1), F(0.0) * z0);
+      lo = p + V3{-r, zmin, -r};
+      hi = p + V3{r, zmax, r};
+      return;
+    }
+    default: {  // HYPERBOLOID
+      V3 p1 = P3(s, off + 3), p2 = P3(s, off + 6);
+      float r = fmaxf(sqrtf(p1.x * p1.x + p1.y * p1.y), sqrtf(p2.x * p2.x + p2.y * p2.y));
+      lo = p + V3{-r, fminf(p1.z, p2.z), -r};
+      hi = p + V3{r, fmaxf(p1.z, p2.z), r};
+      return;
+    }
+  }
+}
+
+// The bound boxes of every cluster (CLUSTER consecutive rows of a batched
+// group), 6 floats each, into `box`: the threads of a block share the work.
+__device__ void cluster_boxes(const Scene& s, float* box, int tid, int n_threads) {
+  int c = 0;
+  for (int g = 0; g < s.n_groups; ++g) {
+    int first = __ldg(s.group + 2 * g), count = __ldg(s.group + 2 * g + 1);
+    for (int k0 = 0; k0 < count; k0 += CLUSTER, ++c) {
+      if (c % n_threads != tid) continue;
+      V3 lo, hi;
+      int end = first + min(k0 + CLUSTER, count);
+      for (int i = first + k0; i < end; ++i) {
+        V3 a, b;
+        object_aabb(s, obj_cat(s, i), obj_off(s, i), a, b);
+        if (i == first + k0) {
+          lo = a;
+          hi = b;
+        } else {
+          lo = {fminf(lo.x, a.x), fminf(lo.y, a.y), fminf(lo.z, a.z)};
+          hi = {fmaxf(hi.x, b.x), fmaxf(hi.y, b.y), fmaxf(hi.z, b.z)};
+        }
+      }
+      float* o = box + 6 * c;
+      o[0] = lo.x; o[1] = lo.y; o[2] = lo.z;
+      o[3] = hi.x; o[4] = hi.y; o[5] = hi.z;
+    }
+  }
+}
+
+// ------------------------------------------------- scene-level queries ----
+// The scene queries and `bounce` are templates over two compile-time facts
+// of a scene, so that K1 compiles only the code a scene needs:
+//   ALL  - it holds a shape other than SPHERE, RECTANGLE and CORNELLBOX (the
+//          benchmark scenes' three); without it the six other shapes' code
+//          is left out (config 2 measured 6% slower with it, an H100);
+//   CULL - the kernel may cull (the cluster boxes are set when `s.box` is).
+// K2 takes the defaults, which hold for every scene.
+
+// The t-only test of table row i.  The benchmark scenes' categories come
+// first as plain branches: one switch over all nine measured 4-13% slower on
+// K1 and K2 (an H100, config 2).
+template <bool ALL = true>
+__device__ __forceinline__ float object_t(const Scene& s, int i, V3 ro, V3 rd) {
+  int cat = obj_cat(s, i), off = obj_off(s, i);
+  V3 a, b;
+  if (cat == SPHERE) return sphere_t(s, off, ro, rd, a, b);
+  if (cat == RECTANGLE) return rect_t(s, off, rect_frame(s, off), ro, rd, a);
+  if (!ALL || cat == CORNELLBOX) return cornell_t(s, off, ro, rd);
+  switch (cat) {
+    case CUBE: return cube_t(s, off, ro, rd);
+    case CONE: return cone_t(s, off, ro, rd, a, b);
+    case CYLINDER: return cylinder_t(s, off, ro, rd, a, b);
+    case DISK: return disk_t(s, off, ro, rd, a);
+    case HYPERBOLOID: return hyperboloid_t(s, off, ro, rd, a, b);
+    case PARABOLOID: return paraboloid_t(s, off, ro, rd, a, b);
   }
   return MAX_DISTANCE;
 }
 
-// Closest hit in scene order; strict <, so a tie keeps the earlier object.
+// Can the ray reach cluster c's bound box before `bound`?
+__device__ __forceinline__ bool cluster_possible(const Scene& s, int c, V3 ro, V3 rd, float bound) {
+  const float* b = s.box + 6 * c;
+  float tn, tf;
+  slab(ro, rd, V3{b[0], b[1], b[2]}, V3{b[3], b[4], b[5]}, tn, tf);
+  return tn < tf && tf > EPSILON && tn < bound;
+}
+
+// Closest hit in fold order (the table's row order); strict <, so a tie
+// keeps the earlier row.  With the cluster boxes set (`cull`), a batched
+// group's cluster is skipped when its box cannot be reached before the best
+// hit so far: exact, as no object inside it can then win.
+template <bool ALL = true, bool CULL = true>
 __device__ __forceinline__ int closest(const Scene& s, V3 ro, V3 rd) {
   float best_t = MAX_DISTANCE;
   int best = -1;
-  for (int i = 0; i < s.n_obj; ++i) {
-    float t = object_t(s, i, ro, rd);
+  const bool cull = CULL && s.box;
+  const int end = cull ? s.n_plain : s.n_obj;
+  for (int i = 0; i < end; ++i) {
+    float t = object_t<ALL>(s, i, ro, rd);
     if (t < best_t) {
       best_t = t;
       best = i;
     }
   }
+  if (!cull) return best;
+  int c = 0;
+  for (int g = 0; g < s.n_groups; ++g) {
+    int first = __ldg(s.group + 2 * g), count = __ldg(s.group + 2 * g + 1);
+    for (int k0 = 0; k0 < count; k0 += CLUSTER, ++c) {
+      if (!cluster_possible(s, c, ro, rd, best_t)) continue;
+      int stop = first + min(k0 + CLUSTER, count);
+      for (int i = first + k0; i < stop; ++i) {
+        float t = object_t<ALL>(s, i, ro, rd);
+        if (t < best_t) {
+          best_t = t;
+          best = i;
+        }
+      }
+    }
+  }
   return best;
 }
 
+// Any occluder with t in (EPSILON, max_t), in fold order; stops at the first.
+template <bool ALL = true, bool CULL = true>
 __device__ __forceinline__ bool occluded(const Scene& s, V3 ro, V3 rd, float max_t) {
-  for (int i = 0; i < s.n_obj; ++i) {
-    float t = object_t(s, i, ro, rd);
+  const bool cull = CULL && s.box;
+  const int end = cull ? s.n_plain : s.n_obj;
+  for (int i = 0; i < end; ++i) {
+    float t = object_t<ALL>(s, i, ro, rd);
     if (t > EPSILON && t < max_t) return true;
+  }
+  if (!cull) return false;
+  int c = 0;
+  for (int g = 0; g < s.n_groups; ++g) {
+    int first = __ldg(s.group + 2 * g), count = __ldg(s.group + 2 * g + 1);
+    for (int k0 = 0; k0 < count; k0 += CLUSTER, ++c) {
+      if (!cluster_possible(s, c, ro, rd, max_t)) continue;
+      int stop = first + min(k0 + CLUSTER, count);
+      for (int i = first + k0; i < stop; ++i) {
+        float t = object_t<ALL>(s, i, ro, rd);
+        if (t > EPSILON && t < max_t) return true;
+      }
+    }
   }
   return false;
 }
 
+template <bool ALL = true>
 __device__ Hit object_hit(const Scene& s, int i, V3 ro, V3 rd) {
-  int cat = __ldg(s.obj + 5 * i), off = __ldg(s.obj + 5 * i + 1);
-  if (cat == SPHERE) return sphere_hit(s, off, ro, rd);
-  if (cat == RECTANGLE) return rect_hit(s, off, ro, rd);
+  int cat = obj_cat(s, i), off = obj_off(s, i);
+  if (!ALL) {
+    if (cat == SPHERE) return sphere_hit(s, off, ro, rd);
+    if (cat == RECTANGLE) return rect_hit(s, off, ro, rd);
+    return cornell_hit(s, off, ro, rd);
+  }
+  switch (cat) {
+    case SPHERE: return sphere_hit(s, off, ro, rd);
+    case RECTANGLE: return rect_hit(s, off, ro, rd);
+    case CUBE: return cube_hit(s, off, ro, rd);
+    case CONE: case CYLINDER: return frustum_hit(s, off, cat, ro, rd);
+    case DISK: return disk_hit(s, off, ro, rd);
+    case HYPERBOLOID: return hyperboloid_hit(s, off, ro, rd);
+    case PARABOLOID: return paraboloid_hit(s, off, ro, rd);
+  }
   return cornell_hit(s, off, ro, rd);
 }
 
@@ -445,21 +829,21 @@ struct Bounce {
 // next-event estimation with a shadow ray.  Returns false on a miss (the path
 // adds nothing more); otherwise adds the bounce's radiance to `e` and
 // advances `st`.
+template <bool ALL = true, bool CULL = true>
 __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uint32_t seed,
                                        uint32_t sample, int bounce_idx, uint32_t row, uint32_t col,
                                        Bounce& v) {
-  int i = closest(s, st.ro, st.rd);
+  int i = closest<ALL, CULL>(s, st.ro, st.rd);
   if (i < 0) return false;
   V3 rd = st.rd;
   v.obj = i;
-  v.h = object_hit(s, i, st.ro, rd);
+  v.h = object_hit<ALL>(s, i, st.ro, rd);
   const Hit& h = v.h;
-  const int* o = s.obj + 5 * i;
+  const int* o = s.obj + OBJ_INTS * i;
   int off = __ldg(o + 1), mat_row = __ldg(o + 2), tex_row = __ldg(o + 3);
   v.emissive = __ldg(o + 4) != 0;
-  int cat = __ldg(o);
   v.off = off;
-  v.eoff = off + (cat == SPHERE ? 4 : 6);
+  v.eoff = off + emission_offset(__ldg(o));
   float reverse = P(s, v.eoff + 3);
   bool face = dot(h.ng * reverse, rd) < -EPSILON;
   V3 emission = face ? P3(s, v.eoff) : V3{0.f, 0.f, 0.f};
@@ -520,7 +904,7 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
     if (did_nee) {
       int lidx = min((int)(lr * (float)s.n_light), s.n_light - 1);
       const int* l = s.light + 3 * lidx;
-      int loff = __ldg(s.obj + 5 * __ldg(l + 1) + 1);
+      int loff = obj_off(s, __ldg(l + 1));
       v.loff = loff;
       v.lem = __ldg(l + 2);
       v.lu1 = lu1;
@@ -540,7 +924,7 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
       // one shadow ray toward the sample
       v.dist = length(v.to_l);
       v.wsh = v.to_l * (F(1.0) / fmaxf(v.dist, F(1e-12)));
-      bool occ = occluded(s, h.p + n * F(1e-4), v.wsh, v.dist * F(1.0 - 1e-3));
+      bool occ = occluded<ALL, CULL>(s, h.p + n * F(1e-4), v.wsh, v.dist * F(1.0 - 1e-3));
       V3 direct = v.rad * (occ ? 0.f : F(1.0));
       v.wl_local = world_to_local(v.wsh, n, ss, ts);
       bool lit = wo.z * v.wl_local.z > F(1e-5);

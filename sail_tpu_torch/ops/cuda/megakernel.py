@@ -1,8 +1,10 @@
 """The render megakernels, K1 (forward) and K2 (backward): wrappers, launch
 counts, plain versions, and the autograd Functions that join them.
 
-K1 replaces `render_block_pallas` (`sail_tpu/ops/pallas/megakernel.py:159`);
-its kernel is `csrc/megakernel.cu`.  K2 replaces `render_grad_block_pallas`
+K1 replaces `render_block_pallas` (`sail_tpu/ops/pallas/megakernel.py:159`),
+its many-object form included (the batched winner-fold, whose order the
+scene table's rows follow, and the opt-in cluster cull, `cull=True`); its
+kernel is `csrc/megakernel.cu`.  K2 replaces `render_grad_block_pallas`
 (`megakernel.py:262`); its kernels are `csrc/megakernel_grad.cu` (the
 per-pixel path adjoint, one row of block partials per thread block) and a
 second small pass that sums the rows in a fixed order.  Both are CUDA C++
@@ -12,8 +14,10 @@ with ctypes.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; it never falls back from one to the other.
-`render_block.launches`, `render_grad_block.launches` and
-`reduce_grad_rows.launches` count kernel launches.
+`render_block.launches`, `render_grad_block.launches` (K2, launched by
+`render_grad_rows`) and `reduce_grad_rows.launches` count kernel launches.
+K1 is built for four scene kinds (`render_block_kernel<ALL, CULL>`); the
+table says which a scene is.
 
 `render_image_fast` / `render_tile_fast` are the JAX package's
 `custom_vjp`s (`megakernel.py:497-569`) as `torch.autograd.Function`s:
@@ -24,13 +28,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import operator
+from typing import NamedTuple
 
 import torch
 
 from ... import constants as C
 from ...core.vecmath import Vec3
+from ...ops import intersect as isect
 from ...render import integrator
-from ...scene.scene import SceneStatic, param_offsets, unflatten
+from ...scene.scene import Offsets, SceneStatic, param_offsets, unflatten
 from ...utils import build
 
 _SOURCE = "megakernel"
@@ -42,33 +48,67 @@ def _int32(v) -> int:
     return (operator.index(v) + (1 << 31)) % (1 << 32) - (1 << 31)
 
 
+class Table(NamedTuple):
+    """The kernels' int32 scene table and what the C entries are told of
+    it."""
+    ints: tuple        # the table (path.cuh `make_scene`)
+    offsets: Offsets   # parameter offsets
+    order: tuple       # scene index of each object row: the fold order
+    n_plain: int       # rows of small categories, before the groups
+    n_groups: int      # batched groups
+    n_clusters: int    # cull clusters over all groups
+    all_shapes: bool   # a shape other than the benchmark scenes' three
+
+
+# The shapes K1's smaller build takes (path.cuh's `ALL`): those of the
+# benchmark scenes.
+_FEW_SHAPES = frozenset((C.SPHERE, C.RECTANGLE, C.CORNELLBOX))
+# The fewest cull clusters at which `render_block` culls by itself: the
+# many-object sweep (chip_smoke.py phase 5, 512² x 8 spp x 3 bounces, an
+# H100) measured the cull 3-11% slower on 16 spheres (2 clusters), 5%
+# faster on 32 (4 clusters) and 20-25% faster on 64 (8 clusters).
+AUTO_CULL_CLUSTERS = 4
+
+
 @functools.lru_cache(maxsize=64)
-def scene_table(static: SceneStatic):
-    """(table, offsets): the kernel's int32 scene table — 5 ints per object
-    (category, param offset, material row, texture row, emissive), 2 per
-    material row (category, offset), 2 per texture row (category, offset),
-    3 per light (category, object, offset) — and the parameter offsets.
-    Raises for structure outside the slice."""
+def scene_table(static: SceneStatic) -> Table:
+    """The kernels' int32 scene table.  Object rows (category, param offset,
+    material row, texture row, emissive, scene index) come in the
+    closest-hit fold order of `intersect.fold_groups`; then (first row,
+    count) per batched group, (category, offset) per material and texture
+    row, and (category, object row, offset) per light.  Raises for structure
+    outside the slice."""
     off = param_offsets(static)
+    plain, batched = isect.fold_groups(static)
+    order = tuple(plain) + tuple(i for _, idxs in batched for i in idxs)
+    row_of = {i: r for r, i in enumerate(order)}
     table = []
-    for i, cat in enumerate(static.object_categories):
-        table += [cat, off.objects[i], static.object_mat_rows[i],
-                  static.object_tex_rows[i], int(static.object_emissive[i])]
+    for i in order:
+        table += [static.object_categories[i], off.objects[i],
+                  static.object_mat_rows[i], static.object_tex_rows[i],
+                  int(static.object_emissive[i]), i]
+    first = len(plain)
+    for _, idxs in batched:
+        table += [first, len(idxs)]
+        first += len(idxs)
     for cat, o in zip(static.material_categories, off.materials):
         table += [cat, o]
     for cat, o in zip(static.texture_categories, off.textures):
         table += [cat, o]
     for cat, obj, o in zip(static.light_categories, static.area_light_objects,
                            off.lights):
-        table += [cat, obj, o]
-    return tuple(table), off
+        table += [cat, row_of[obj], o]
+    n_clusters = sum(-(-len(idxs) // isect.CLUSTER) for _, idxs in batched)
+    return Table(tuple(table), off, order, len(plain), len(batched),
+                 n_clusters,
+                 not _FEW_SHAPES.issuperset(static.object_categories))
 
 
 @functools.lru_cache(maxsize=64)
 def _device_table(static: SceneStatic, device: torch.device) -> torch.Tensor:
     """The scene table on `device`, copied there once per scene structure,
     so a render call copies nothing from the host."""
-    return torch.tensor(scene_table(static)[0], dtype=torch.int32,
+    return torch.tensor(scene_table(static).ints, dtype=torch.int32,
                         device=device)
 
 
@@ -83,7 +123,7 @@ def _check_block(params, static, height, width, spp, max_bounces, row0,
         raise ValueError(f"bad block: {height}x{width}, spp={spp}, "
                          f"max_bounces={max_bounces}, rows {row0}+{height} "
                          f"of {image_height}")
-    _, off = scene_table(static)   # raises NotImplementedError off the slice
+    off = scene_table(static).offsets   # raises NotImplementedError off the slice
     if params.numel() != off.size:
         raise ValueError(f"scene needs {off.size} params, got {params.numel()}")
     if params.device.type not in ("cpu", "cuda"):
@@ -94,12 +134,13 @@ def _check_block(params, static, height, width, spp, max_bounces, row0,
 def render_block_plain(params: torch.Tensor, static: SceneStatic, height: int,
                        width: int, spp: int, seed, sample0,
                        max_bounces: int = C.MAX_BOUNCES, row0: int = 0,
-                       image_height: int = None) -> Vec3:
+                       image_height: int = None, cull: bool = False) -> Vec3:
     """The plain PyTorch version of K1 on any device: spp-SUM of radiance
     of an H×W block whose first row is global row `row0`."""
     return integrator.render_sum(unflatten(params, static), static, height,
                                  width, spp, seed, sample0, max_bounces,
-                                 row0=row0, image_height=image_height)
+                                 row0=row0, image_height=image_height,
+                                 cull=cull)
 
 
 def _bind(source: str, name: str, argtypes):
@@ -115,26 +156,51 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    return _bind(_SOURCE, "sail_render_block",
-                 [_PTR] * 2 + [_INT] * 5 + [_PTR] * 3 + [_INT] * 8 + [_PTR])
+    fn = _bind(_SOURCE, "sail_render_block",
+               [_PTR] * 2 + [_INT] * 9 + [_PTR] * 3 + [_INT] * 8 + [_PTR])
+    return fn, build.load(_SOURCE).sail_max_clusters()
 
 
 def _counts(static: SceneStatic):
-    """Objects, material rows, texture rows, lights: the table's sections."""
-    return (len(static.object_categories), len(static.material_categories),
-            len(static.texture_categories), len(static.light_categories))
+    """Objects, rows before the groups, batched groups, material rows,
+    texture rows, lights: the table's sections."""
+    t = scene_table(static)
+    return (len(static.object_categories), t.n_plain, t.n_groups,
+            len(static.material_categories), len(static.texture_categories),
+            len(static.light_categories))
+
+
+def cull_clusters(static: SceneStatic, cull: bool = None,
+                  max_clusters: int = None) -> int:
+    """The cluster bound boxes K1 builds for `render_block(cull=)`: all of
+    the scene's, or 0 (no cull).  `cull=None` culls from AUTO_CULL_CLUSTERS
+    clusters up to the `max_clusters` the kernel takes; `cull=True` above
+    that raises."""
+    n = scene_table(static).n_clusters
+    if cull is None:
+        cull = AUTO_CULL_CLUSTERS <= n and (max_clusters is None
+                                            or n <= max_clusters)
+    if cull and max_clusters is not None and n > max_clusters:
+        raise ValueError(f"the cull takes at most {max_clusters} clusters of "
+                         f"{isect.CLUSTER} objects; the scene has {n}")
+    return n if cull else 0
 
 
 def render_block(params: torch.Tensor, static: SceneStatic, height: int,
                  width: int, spp: int, seed, sample0,
                  max_bounces: int = C.MAX_BOUNCES, row0: int = 0,
-                 image_height: int = None) -> Vec3:
+                 image_height: int = None, cull: bool = None) -> Vec3:
     """Forward render of an H×W block: the SUM of `spp` samples (divide by
     spp for the mean), as a Vec3 of (H, W) float32 tensors on params' device.
 
     `row0`/`image_height`: the block's global first row and the full image
     height, so a tile draws the same RNG streams and camera rays as the
-    whole image."""
+    whole image.  `cull`: each ray skips the clusters of CLUSTER
+    consecutive objects of a batched group whose bound box it cannot reach
+    (`render_block_pallas(cull=)`); the image is the same.  By default
+    (None) the kernel culls where the scene has AUTO_CULL_CLUSTERS clusters
+    or more (and no more than the kernel takes), and the plain version (the
+    CPU) does not cull."""
     image_height = height if image_height is None else image_height
     if params.requires_grad and torch.is_grad_enabled():
         raise TypeError(
@@ -145,17 +211,21 @@ def render_block(params: torch.Tensor, static: SceneStatic, height: int,
 
     if params.device.type == "cpu":
         return render_block_plain(params, static, height, width, spp, seed,
-                                  sample0, max_bounces, row0, image_height)
+                                  sample0, max_bounces, row0, image_height,
+                                  bool(cull))
 
     dev = params.device
     table_t = _device_table(static, dev)
+    fn, max_clusters = _entry()
+    table = scene_table(static)
+    n_clusters = cull_clusters(static, cull, max_clusters)
     out = torch.empty((3, height, width), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):   # the C launch goes to the current device
-        err = _entry()(
+        err = fn(
             params.data_ptr(), table_t.data_ptr(), *_counts(static),
-            off.camera, out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(), height, width, spp, _int32(seed),
-            _int32(sample0), max_bounces, row0, image_height,
+            off.camera, int(table.all_shapes), n_clusters, out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), height, width, spp,
+            _int32(seed), _int32(sample0), max_bounces, row0, image_height,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {err}")
@@ -186,25 +256,42 @@ def render_grad_block_plain(params: torch.Tensor, static: SceneStatic,
     return grad
 
 
+# The gradient-array sizes K2 is built for (`megakernel_grad.cu` CAPS).
+GRAD_CAPS = (352, 1024, 4096)
+
+
+def grad_cap(n_params: int, caps=GRAD_CAPS) -> int:
+    """The K2 build a scene of `n_params` parameters runs: the smallest cap
+    that holds them.  Raises above the largest."""
+    for cap in caps:
+        if n_params <= cap:
+            return cap
+    raise ValueError(f"K2 takes at most {max(caps)} scene parameters; the "
+                     f"scene has {n_params}")
+
+
 @functools.lru_cache(maxsize=None)
 def _grad_entries():
     lib = build.load(_GRAD_SOURCE)
-    limits = (ctypes.c_int * 4)()
+    limits = (ctypes.c_int * 16)()
     lib.sail_grad_limits(limits)
+    caps = tuple(limits[4:4 + limits[3]])
+    if caps != GRAD_CAPS:
+        raise RuntimeError(f"K2 was built for caps {caps}, the wrapper "
+                           f"expects {GRAD_CAPS}")
     return (_bind(_GRAD_SOURCE, "sail_render_grad_block",
-                  [_PTR] * 2 + [_INT] * 6 + [_PTR] * 4 + [_INT] * 8 + [_PTR]),
+                  [_PTR] * 2 + [_INT] * 9 + [_PTR] * 4 + [_INT] * 8 + [_PTR]),
             _bind(_GRAD_SOURCE, "sail_reduce_grad_rows",
                   [_PTR, _INT, _INT, _PTR, _PTR]),
-            tuple(limits))
+            tuple(limits[:3]))
 
 
 def grad_limits() -> dict:
     """K2's compile-time bounds, read from the built library: its thread
-    block (columns, rows), the most scene parameters a thread can sum, and
-    the most bounces a thread can store."""
-    bx, by, max_params, max_bounces = _grad_entries()[2]
-    return dict(block=(bx, by), max_params=max_params,
-                max_bounces=max_bounces)
+    block (columns, rows), the most bounces a thread can store, and the
+    gradient-array sizes it is built for."""
+    bx, by, max_bounces = _grad_entries()[2]
+    return dict(block=(bx, by), max_bounces=max_bounces, caps=GRAD_CAPS)
 
 
 def reduce_grad_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -235,7 +322,21 @@ def render_grad_block(params: torch.Tensor, static: SceneStatic, g: Vec3,
     spp-SUM `render_block` gives for the same arguments; `g` is a Vec3 of
     (H, W) float32 tensors on params' device.  Returns the flat gradient in
     `jax.tree.leaves` order.  Repeated calls give bit-identical results."""
-    image_height = height if image_height is None else image_height
+    if params.device.type == "cpu":
+        image_height = height if image_height is None else image_height
+        _check_grad_block(params, static, g, height, width, spp, max_bounces,
+                          row0, image_height)
+        return render_grad_block_plain(params, static, g, height, width, spp,
+                                       seed, sample0, max_bounces, row0,
+                                       image_height)
+    return reduce_grad_rows(render_grad_rows(
+        params, static, g, height, width, spp, seed, sample0, max_bounces,
+        row0, image_height))
+
+
+def _check_grad_block(params, static, g, height, width, spp, max_bounces,
+                      row0, image_height):
+    """Raise on what K2 does not take; return the param offsets."""
     off = _check_block(params, static, height, width, spp, max_bounces, row0,
                        image_height)
     for c in g:
@@ -244,15 +345,29 @@ def render_grad_block(params: torch.Tensor, static: SceneStatic, g: Vec3,
                 and c.device == params.device):
             raise TypeError(f"g must be three contiguous float32 "
                             f"({height}, {width}) tensors on {params.device}")
-    if params.device.type == "cpu":
-        return render_grad_block_plain(params, static, g, height, width, spp,
-                                       seed, sample0, max_bounces, row0,
-                                       image_height)
+    return off
 
-    grad_fn, _, (bx, by, max_params, max_bounces_cap) = _grad_entries()
-    if off.size > max_params or max_bounces > max_bounces_cap:
-        raise ValueError(f"K2 takes at most {max_params} params and "
-                         f"{max_bounces_cap} bounces; got {off.size} and "
+
+def render_grad_rows(params: torch.Tensor, static: SceneStatic, g: Vec3,
+                     height: int, width: int, spp: int, seed, sample0,
+                     max_bounces: int = C.MAX_BOUNCES, row0: int = 0,
+                     image_height: int = None) -> torch.Tensor:
+    """K2's first pass on the card: the (n_blocks, n_params) partial
+    gradients of its thread blocks (`grad_limits()["block"]` pixels each,
+    row-major over the block grid), which `reduce_grad_rows` sums into
+    `render_grad_block`'s result.  A row holds only its block's pixels, so
+    a cotangent on one pixel of every block gives each of those pixels'
+    own gradient.  Counts on `render_grad_block.launches`."""
+    image_height = height if image_height is None else image_height
+    off = _check_grad_block(params, static, g, height, width, spp,
+                            max_bounces, row0, image_height)
+    if not params.is_cuda:
+        raise TypeError("render_grad_rows runs K2 on the card: params must "
+                        "be a CUDA tensor")
+    cap = grad_cap(off.size)
+    grad_fn, _, (bx, by, max_bounces_cap) = _grad_entries()
+    if max_bounces > max_bounces_cap:
+        raise ValueError(f"K2 takes at most {max_bounces_cap} bounces; got "
                          f"{max_bounces}")
     dev = params.device
     n_blocks = -(-width // bx) * -(-height // by)
@@ -260,14 +375,14 @@ def render_grad_block(params: torch.Tensor, static: SceneStatic, g: Vec3,
     with torch.cuda.device(dev):
         err = grad_fn(
             params.data_ptr(), _device_table(static, dev).data_ptr(),
-            *_counts(static), off.camera, off.size, g.x.data_ptr(),
+            *_counts(static), off.camera, off.size, cap, g.x.data_ptr(),
             g.y.data_ptr(), g.z.data_ptr(), rows.data_ptr(), height, width,
             spp, _int32(seed), _int32(sample0), max_bounces, row0,
             image_height, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError_t {err}")
     render_grad_block.launches += 1
-    return reduce_grad_rows(rows)
+    return rows
 
 
 render_grad_block.launches = 0

@@ -26,10 +26,12 @@ def _sample_rectangle(params, u1, u2, shape):
 
 
 def sample_direct(objects: tuple, lights: tuple, static, hit_p: Vec3,
-                  hit_n: Vec3, u1, u2, light_idx) -> tuple[Vec3, Vec3]:
+                  hit_n: Vec3, u1, u2, light_idx, cull: bool = False,
+                  tally: dict = None) -> tuple[Vec3, Vec3]:
     """Returns (radiance, wi_world): incident radiance weighted by the
     surface cosine, geometric terms, visibility and the light-pick pdf; and
-    the light direction for BSDF evaluation."""
+    the light direction for BSDF evaluation.  `cull` and `tally` go to
+    the shadow scan (`intersect.occluded`)."""
     shape = hit_p.shape
     n_lights = len(lights)
     black = vm.zeros_vec(shape, hit_p.x)
@@ -60,6 +62,7 @@ def sample_direct(objects: tuple, lights: tuple, static, hit_p: Vec3,
     dist = to_l.length()
     wi = to_l * (1.0 / vm.clip(dist, 1e-12))
     origin = hit_p + hit_n * 1e-4
-    occ = isect.occluded(objects, static, origin, wi, dist * (1.0 - 1e-3))
+    occ = isect.occluded(objects, static, origin, wi, dist * (1.0 - 1e-3),
+                         cull=cull, tally=tally)
     vis = torch.where(occ, 0.0, 1.0)
     return cand_r * vis, wi

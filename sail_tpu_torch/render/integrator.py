@@ -10,6 +10,14 @@ Estimator (the JAX package's): NEE on matte, non-emissive hits only; the next
 bounce's emission pickup is skipped where the previous bounce did NEE; BSDF
 weights are clipped to [0, 1]; RNG is the counter-based per-pixel hash, so
 every pixel draws the JAX package's streams.
+
+`cull` (default off) lets the closest-hit and shadow scans skip the clusters
+of a batched object group whose bound box a ray cannot reach
+(`ops/intersect.py`); it never changes an image.  `tally` (a dict) collects
+each bounce's masks and the tests its scans ran, from which
+`utils/opcount.py` counts the work the inputs need; it never changes a value
+either.  The plain version runs in the parameters' dtype, so float64
+parameters give a float64 witness of the same estimator.
 """
 from __future__ import annotations
 
@@ -30,6 +38,10 @@ from ..ops import lights as lights_ops
 from ..ops import materials as mat_ops
 from ..ops import textures as tex_ops
 
+# Rays one pass of `render_sum` traces: it takes as many samples together as
+# fit (one at a time from 512² up) and adds them in sample order.
+RAYS_PER_PASS = 1 << 17
+
 
 class _PathState(NamedTuple):
     """Per-lane state carried across bounces."""
@@ -42,16 +54,26 @@ class _PathState(NamedTuple):
 
 
 def _bounce_step(scene, state: _PathState, noise: PixelNoise, *, static,
-                 bounce: int) -> _PathState:
+                 bounce: int, cull: bool = False,
+                 tally: dict = None) -> _PathState:
     """One bounce: intersect → shade → NEE → continue."""
-    hit = isect.intersect_scene(scene.objects, static, state.ro, state.rd)
+    hit = isect.intersect_scene(scene.objects, static, state.ro, state.rd,
+                                cull=cull, tally=tally)
     alive = state.alive & hit.valid
-    return _bounce_shade(scene, state, hit, alive, noise, static=static,
-                         bounce=bounce)
+    out = _bounce_shade(scene, state, hit, alive, noise, static=static,
+                        bounce=bounce, cull=cull, tally=tally)
+    if tally is not None:   # the scans' tests move into the bounce's record
+        tally.setdefault("bounces", []).append(dict(
+            scan=tally.pop("scan"), shadow=tally.pop("shadow", None),
+            occluded=tally.pop("occluded", None), entered=state.alive,
+            alive=alive, obj_id=hit.obj_id, mat_row=hit.mat_row,
+            nee=out.skip_emission))
+    return out
 
 
 def _bounce_shade(scene, state: _PathState, hit, alive, noise: PixelNoise,
-                  *, static, bounce: int) -> _PathState:
+                  *, static, bounce: int, cull: bool = False,
+                  tally: dict = None) -> _PathState:
     """Shade + NEE + path continuation for an already-intersected bounce."""
     rd = state.rd
     shape = rd.shape
@@ -86,7 +108,8 @@ def _bounce_shade(scene, state: _PathState, hit, alive, noise: PixelNoise,
         lidx = torch.clamp((lr * n_lights).to(torch.int32), max=n_lights - 1)
         nee_mask = (ms.is_matte > 0) & (hit.emissive == 0) & alive
         direct, wi_light = lights_ops.sample_direct(
-            scene.objects, scene.lights, static, hit.p, hit.n, lu1, lu2, lidx)
+            scene.objects, scene.lights, static, hit.p, hit.n, lu1, lu2, lidx,
+            cull=cull, tally=tally)
         wi_light_local = vm.world_to_local(wi_light, hit.n, ss, ts)
         f_light = mat_ops.eval_matte_f(scene.materials, static, hit.mat_row,
                                        sc, wo, wi_light_local)
@@ -105,7 +128,8 @@ def _bounce_shade(scene, state: _PathState, hit, alive, noise: PixelNoise,
 
 
 def trace_rays(scene, static, ro: Vec3, rd: Vec3, noise: PixelNoise,
-               max_bounces: int = C.MAX_BOUNCES) -> Vec3:
+               max_bounces: int = C.MAX_BOUNCES, cull: bool = False,
+               tally: dict = None) -> Vec3:
     """Radiance of a batch of rays traced through the packed scene (`scene`
     a PackedScene view, `static` a SceneStatic), every bounce masked."""
     shape = torch.broadcast_shapes(ro.shape, rd.shape)
@@ -119,7 +143,7 @@ def trace_rays(scene, static, ro: Vec3, rd: Vec3, noise: PixelNoise,
                        torch.zeros(shape, dtype=torch.bool, device=dev))
     for bounce in range(max_bounces):
         state = _bounce_step(scene, state, noise, static=static,
-                             bounce=bounce)
+                             bounce=bounce, cull=cull, tally=tally)
     return state.e
 
 
@@ -133,39 +157,54 @@ def pixel_grid(height: int, width: int, row0: int, device):
 
 def render_sample(scene, static, height: int, width: int, seed, sample_idx,
                   max_bounces: int = C.MAX_BOUNCES, row0: int = 0,
-                  image_height: int = None) -> Vec3:
+                  image_height: int = None, cull: bool = False,
+                  tally: dict = None, n_samples: int = None) -> Vec3:
     """Radiance of one 1-spp pass over an H×W block whose first row is
     global row `row0` of an image `image_height` rows tall (default
-    `height`)."""
+    `height`).  With `n_samples`, the passes of samples sample_idx,
+    sample_idx + 1, ... traced together, as (n_samples, H, W) tensors."""
     image_height = height if image_height is None else image_height
-    ii, jj = pixel_grid(height, width, row0, scene.camera.eye.x.device)
+    like = scene.camera.eye.x
+    ii, jj = pixel_grid(height, width, row0, like.device)
+    if n_samples is not None:
+        shape = (n_samples, height, width)
+        ii, jj = ii.expand(shape), jj.expand(shape)
+        sample_idx = sample_idx + torch.arange(
+            n_samples, dtype=torch.int64, device=like.device).view(-1, 1, 1)
     noise = PixelNoise(seed, sample_idx, ii, jj)
     jx, jy, _ = noise.uniform3(0, rng.TAG_PIXEL_JITTER)
-    ro, rd = rays_for_pixels(scene.camera, ii.to(torch.float32),
-                             jj.to(torch.float32), image_height, width, jx, jy)
-    return trace_rays(scene, static, ro, rd, noise, max_bounces)
+    ro, rd = rays_for_pixels(scene.camera, ii.to(like.dtype),
+                             jj.to(like.dtype), image_height, width, jx, jy)
+    return trace_rays(scene, static, ro, rd, noise, max_bounces, cull=cull,
+                      tally=tally)
 
 
 def render_sum(scene, static, height: int, width: int, spp: int, seed,
                sample0, max_bounces: int = C.MAX_BOUNCES, row0: int = 0,
-               image_height: int = None) -> Vec3:
+               image_height: int = None, cull: bool = False) -> Vec3:
     """SUM of `spp` passes (samples sample0, sample0+1, ...), added in
-    sample order: the plain version of the K1 megakernel.
+    sample order: the plain version of the K1 megakernel.  Samples are
+    traced together, up to RAYS_PER_PASS rays at once.
 
     Under autograd each pass is checkpointed (`jax.checkpoint` in the JAX
-    package): the backward re-traces a sample instead of keeping every
-    sample's graph, so a 1024² backward holds one sample's graph, not
+    package): the backward re-traces a pass instead of keeping every
+    pass's graph, so a 1024² backward holds one sample's graph, not
     spp of them.  Values are the same either way."""
     acc = vm.zeros_vec((height, width), scene.camera.eye.x)
     # every leaf is a view of one flat tensor, so one leaf tells
     grad = torch.is_grad_enabled() and scene.camera.eye.x.requires_grad
-    for s in range(spp):
+    per_pass = max(1, min(spp, RAYS_PER_PASS // (height * width)))
+    for s in range(0, spp, per_pass):
+        n = min(per_pass, spp - s)
         one = functools.partial(render_sample, scene, static, height, width,
                                 seed, sample0 + s, max_bounces, row0=row0,
-                                image_height=image_height)
+                                image_height=image_height, cull=cull,
+                                n_samples=n)
         if grad:
             one = functools.partial(checkpoint, one, use_reentrant=False)
-        acc = acc + one()
+        rad = one()
+        for k in range(n):
+            acc = acc + Vec3(rad.x[k], rad.y[k], rad.z[k])
     return acc
 
 

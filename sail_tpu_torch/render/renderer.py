@@ -4,8 +4,9 @@
 sample, `render_spp` adds many, and `output` runs the scene's display filter
 and returns a numpy (H, W, 3) array.  Every render call goes through
 `render_block`: on a CUDA device that is ONE launch of the K1 megakernel for
-all `spp` samples; on the CPU it is the plain torch version.  There is no
-fallback from the kernel to the plain path.
+all `spp` samples; on the CPU it is the plain torch version.  The Renderer
+runs on the card unless it is given `device="cpu"`; there is no fallback
+from the card or the kernel to the CPU or the plain path.
 
 Not ported yet: the G-buffer and the filters that read it (`normal`,
 `position`, `wavelet`), the windowed filters, `early_exit`, the selection
@@ -27,11 +28,13 @@ from ..scene.scene import Scene
 
 class Renderer:
     def __init__(self, width: int = 512, height: int = 512, seed: int = 0,
-                 max_bounces: int = C.MAX_BOUNCES, device="cpu"):
-        device = torch.device(device)
+                 max_bounces: int = C.MAX_BOUNCES, device=None):
+        device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Renderer(device='cuda') needs a CUDA device; "
-                               "torch.cuda.is_available() is False")
+            raise RuntimeError(
+                "Renderer runs on a CUDA device by default and "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "render with the plain torch version")
         self.width = width
         self.height = height
         self.max_bounces = max_bounces

@@ -7,11 +7,11 @@ hashable `SceneStatic` with the same fields and values as the JAX one.  The
 flat vector is the CUDA megakernel's ABI; `unflatten` views it as the
 structured `PackedScene` the plain torch ops read.
 
-The port covers the slice's categories only (shapes SPHERE, RECTANGLE,
-CORNELLBOX; materials MATTE, MIRROR; texture UNIFORM_COLOR; AREA lights over
-a RECTANGLE; fewer than 8 objects of one shape).  `check_supported` raises
-`NotImplementedError` naming the ROADMAP.md item for anything else, so an
-unported category never renders a wrong image.
+The port covers every shape category, in any number, and so far the
+materials MATTE and MIRROR, the texture UNIFORM_COLOR and AREA lights over a
+RECTANGLE.  `check_supported` raises `NotImplementedError` naming the
+ROADMAP.md item for anything else, so an unported category never renders a
+wrong image.
 """
 from __future__ import annotations
 
@@ -29,8 +29,9 @@ from .light import AreaLight, Light
 VALID_FILTERS = ("color", "gamma", "tonemapping", "normal", "position",
                  "box", "triangle", "gaussian", "mitchell", "sinc", "wavelet")
 
-# Objects per shape category from which the JAX package switches to its
-# batched winner-fold (`sail_tpu/ops/intersect.py` BATCH_THRESHOLD).
+# Objects per shape category from which the JAX package folds the category
+# as one batched group after the other objects (`sail_tpu/ops/intersect.py`
+# BATCH_THRESHOLD); the fold order decides which object wins a tie.
 BATCH_THRESHOLD = 8
 
 CAMERA_WIDTHS = (3, 3, 3, 3, 1, 1)
@@ -41,7 +42,7 @@ _TODO = "not ported yet (ROADMAP.md queue 1: {})"
 
 class PackedScene(NamedTuple):
     """Structured view of the flat parameter tensor."""
-    objects: tuple      # per-object SphereP / BoxP
+    objects: tuple      # per-object SphereP / BoxP / FrustumP / ...
     materials: tuple    # material rows (deduped)
     textures: tuple     # texture rows (deduped)
     lights: tuple       # per-light AreaLightP
@@ -65,14 +66,7 @@ def check_supported(static: SceneStatic) -> None:
     """Raise NotImplementedError for any structure outside the slice."""
     for cat in static.object_categories:
         if cat not in geometry.LAYOUTS:
-            raise NotImplementedError(
-                f"shape {C.SHAPE_NAMES.get(cat, cat)}: "
-                + _TODO.format("remaining geometry"))
-        if static.object_categories.count(cat) >= BATCH_THRESHOLD:
-            raise NotImplementedError(
-                f"{BATCH_THRESHOLD} or more {C.SHAPE_NAMES[cat]} objects use "
-                "the batched winner-fold (K1-many): "
-                + _TODO.format("remaining geometry and many objects"))
+            raise ValueError(f"unknown shape category {cat}")
     for cat in static.material_categories:
         if cat not in material.LAYOUTS:
             raise NotImplementedError(

@@ -110,10 +110,13 @@ def load(name: str) -> ctypes.CDLL:
 def kernel_name(symbol: str) -> str:
     """A kernel's own name from its (Itanium-mangled) symbol:
     `_ZN..._GLOBAL__N_119render_block_kernelE6Scene...` gives
-    `render_block_kernel`; an unmangled name is returned as it is.  The
-    names are read by their length prefixes, not searched for: nvcc names an
-    anonymous namespace after a hash of the file, which may hold digits
-    followed by letters."""
+    `render_block_kernel`, and an instance of a template over integer or
+    bool literals, `..._GLOBAL__N_118render_grad_kernelILi352EEEv...` or
+    `...19render_block_kernelILb1ELb0EEEv...`, gives `render_grad_kernel<352>`
+    or `render_block_kernel<true, false>`; an unmangled name is returned as
+    it is.  The names are read by their length prefixes, not searched for:
+    nvcc names an anonymous namespace after a hash of the file, which may
+    hold digits followed by letters."""
     if not symbol.startswith("_Z"):
         return symbol
     nested = symbol.startswith("_ZN")
@@ -121,7 +124,12 @@ def kernel_name(symbol: str) -> str:
     while True:
         m = re.match(r"\d+", symbol[pos:])
         if not m:
-            return name
+            t = re.match(r"I((?:L[ijb]\d+E)+)E", symbol[pos:])
+            if not t:
+                return name
+            args = [("false", "true")[int(v)] if k == "b" else v
+                    for k, v in re.findall(r"L([ijb])(\d+)E", t.group(1))]
+            return f"{name}<{', '.join(args)}>"
         start = pos + m.end()
         name, pos = symbol[start:start + int(m.group())], start + int(m.group())
         if not nested:

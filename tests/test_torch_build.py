@@ -55,6 +55,14 @@ def test_kernel_name_demangles():
         == "render_block_kernel"
     assert build.kernel_name("_Z9my_kernelPf") == "my_kernel"
     assert build.kernel_name("sail_kernel") == "sail_kernel"
+    # K2 is built for a few gradient-array sizes: one kernel per size
+    assert build.kernel_name(
+        f"_ZN{len(ns)}{ns}18render_grad_kernelILi4096EEEv5SceneiPKfS3_S3_Pf"
+        "iiijjiii") == "render_grad_kernel<4096>"
+    # K1 is built for each (ALL, CULL) pair of bools
+    assert build.kernel_name(
+        f"_ZN{len(ns)}{ns}19render_block_kernelILb1ELb0EEEv5SceneiPfS3_S3_"
+        "iiijjiii") == "render_block_kernel<true, false>"
 
 
 def test_resource_usage_reports_each_kernel(csrc):
@@ -93,17 +101,24 @@ def test_build_without_nvcc_raises(csrc, monkeypatch):
 
 
 def test_largest_scene_of_the_slice_fits_k2():
-    """K2 sums each thread's gradient in a compile-time array: the largest
-    scene `check_supported` lets through (7 objects of each shape, every
-    one with its own material and texture, every rectangle a light) must
-    fit it."""
+    """K2 sums each thread's gradient in a compile-time array, built for a
+    few sizes (`megakernel_grad.cu` CAPS, which the wrapper's GRAD_CAPS
+    repeats): a scene of 7 objects of each of the first slice's shapes,
+    every one with its own material and texture, every rectangle a light,
+    fits the smallest; the 256-sphere scene of the many-object benchmark
+    (3,375 parameters) fits the largest."""
     import re
     from sail_tpu_torch import (AreaLight, Camera, Cornellbox, Matte, Rectangle,
-                                Scene, Sphere, UniformColor)
+                                Scene, Sphere, UniformColor, scenes)
+    from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.scene.scene import param_offsets
-    with open(os.path.join(build.CSRC_DIR, "adjoint.cuh")) as f:
-        cap = int(re.search(r"constexpr int MAX_PARAMS = (\d+);",
-                            f.read()).group(1))
+    with open(os.path.join(build.CSRC_DIR, "megakernel_grad.cu")) as f:
+        caps = tuple(int(c) for c in re.search(
+            r"constexpr int CAPS\[\] = \{([\d, ]+)\};", f.read()).group(1)
+            .split(","))
+    assert caps == mk.GRAD_CAPS
+    cap = caps[0]
+    assert mk.grad_cap(scenes.many_spheres(256).pack()[0].numel()) == caps[-1]
     scene = Scene()
     scene.add(Camera((0.0, 0.0, -2.5), (0.0, 0.0, 0.0)))
     for k in range(7):

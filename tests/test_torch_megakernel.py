@@ -52,6 +52,15 @@ def test_cpu_calls_count_no_launch():
     assert mk.render_block.launches == before == 0
 
 
+def test_default_renderer_asks_for_the_card(monkeypatch):
+    """Renderer() with no device runs on the card: without one it raises
+    and names device="cpu", never carrying on on the CPU by itself."""
+    from sail_tpu_torch import Renderer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Renderer(8, 8)
+
+
 def test_cuda_renderer_without_card_raises(monkeypatch):
     from sail_tpu_torch import Renderer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -66,20 +75,19 @@ def _from_jax(scene):
             static_from_jax(static))
 
 
-def _many_spheres():
+def _disk_light():
     import sail_tpu as sail
     scene = sail.Scene()
     scene.add(sail.Camera((0.0, 0.0, -2.5), (0.0, 0.0, 0.0)))
-    for k in range(9):
-        scene.add(sail.Sphere((-0.7 + 0.7 * (k % 3), -0.7 + 0.7 * (k // 3),
-                               0.3), 0.22, sail.Matte()))
+    scene.add(sail.Sphere((0.0, -0.3, 0.3), 0.3, sail.Matte()))
+    scene.add(sail.AreaLight(sail.Disk((0.0, 0.9, 0.0), 0.3), (5.0, 5.0, 5.0)))
     return scene
 
 
 @pytest.mark.parametrize("scene_fn,match", [
     (jscenes.material_demo, "not ported yet"),
     (jscenes.lights_and_quadrics, "not ported yet"),
-    (_many_spheres, "batched winner-fold"),
+    (_disk_light, "area sampling of the other emitter shapes"),
 ])
 def test_unsupported_structure_raises(scene_fn, match):
     params, static = _from_jax(scene_fn())

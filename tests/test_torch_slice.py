@@ -38,10 +38,10 @@ def test_renderer_matches_jax(name):
 
 def test_render_one_at_a_time_equals_render_spp():
     scene = tscenes.cornell_mirror()
-    a = sail_tpu_torch.Renderer(8, 8, seed=3, max_bounces=2)
+    a = sail_tpu_torch.Renderer(8, 8, seed=3, max_bounces=2, device="cpu")
     a.update(scene)
     a.render_spp(scene, 2)
-    b = sail_tpu_torch.Renderer(8, 8, seed=3, max_bounces=2)
+    b = sail_tpu_torch.Renderer(8, 8, seed=3, max_bounces=2, device="cpu")
     b.update(scene)
     b.render(scene)
     b.render(scene)
@@ -50,7 +50,7 @@ def test_render_one_at_a_time_equals_render_spp():
 
 def test_moving_scene_restarts_accumulation():
     scene = tscenes.cornell_matte()
-    r = sail_tpu_torch.Renderer(8, 8, seed=1, max_bounces=2)
+    r = sail_tpu_torch.Renderer(8, 8, seed=1, max_bounces=2, device="cpu")
     r.update(scene)
     r.render_spp(scene, 2)
     scene.objects[1].center = (0.2, -0.5, 0.1)
@@ -59,7 +59,8 @@ def test_moving_scene_restarts_accumulation():
     assert r.sample_count == scene.sample_count == 1
     moved = tscenes.cornell_matte()
     moved.objects[1].center = (0.2, -0.5, 0.1)
-    fresh = sail_tpu_torch.Renderer(8, 8, seed=1, max_bounces=2)
+    fresh = sail_tpu_torch.Renderer(8, 8, seed=1, max_bounces=2,
+                                    device="cpu")
     fresh.update(moved)
     fresh.render_spp(moved, 1)
     np.testing.assert_array_equal(r.output(scene), fresh.output(moved))
@@ -67,7 +68,7 @@ def test_moving_scene_restarts_accumulation():
 
 def test_gbuffer_filters_not_ported():
     scene = tscenes.cornell_matte()
-    r = sail_tpu_torch.Renderer(4, 4, max_bounces=1)
+    r = sail_tpu_torch.Renderer(4, 4, max_bounces=1, device="cpu")
     r.render(scene)
     scene.filter = "normal"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
