@@ -4,9 +4,10 @@
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device and build: torch, CUDA, nvcc, the card's name and power limit;
-     builds K1 (csrc/megakernel.cu) and K2 (csrc/megakernel_grad.cu), one
-     nvcc each, started together, and reports each kernel's registers,
-     stack and spills (nvcc -Xptxas -v).
+     builds K1 (csrc/megakernel.cu, eight scene kinds) and K2
+     (csrc/megakernel_grad.cu, six builds), one nvcc each, started
+     together, and reports each kernel's registers, stack and spills (nvcc
+     -Xptxas -v).
   2. kernel vs plain on the card: K1 against its plain torch version on the
      same CUDA tensors (cornell_matte, cornell_mirror, a row tile, a ragged
      block with another seed, and open_lights: misses, Oren-Nayar, an
@@ -23,10 +24,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      repeat; its reduce pass against a plain sum; then
      render_image_fast(params, seed, static, 1024, 1024, 64, 5) ->
      mean(x + y + z) -> backward(), through exactly one K1, one K2 and one
-     reduce launch, timed; K2 at that shape against its plain version and,
-     bit for bit, against the step's gradient; then 5 Adam steps on the
-     materials and lights from a perturbed scene toward a target image,
-     whose loss must fall.
+     reduce launch, timed; K2 at that shape bit for bit against the step's
+     gradient, and against its plain version on a full-width row tile of
+     the step (relative L-inf and per leaf with the pixel term); then 5
+     Adam steps on the materials and lights from a perturbed scene toward a
+     target image, whose loss must fall.
   5. every shape and many objects, forward: K1 against its plain version at
      64² on the quadrics scene (one of each new shape), 9 cubes and 8 disks
      (two batched groups of new shapes), 12 and 64 spheres, and the 8 flat
@@ -51,6 +53,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
      on a full-width row tile of each step at its spp and bounces, the
      worst leaf split into its per-pixel contributions on both sides
      (sail_tpu_torch/tools/grad_localise.py).
+  7. materials and early exit (BASELINE config 3): K1 against its plain
+     version at 64² x 4 spp x 3 bounces on material_demo, its open twin
+     material_demo_open and the check scene material_check (Beckmann and
+     anisotropic GGX metal, rough glass of both distributions, each uv
+     texture), and golden config3; then Renderer(1024, 1024, seed=0,
+     max_bounces=5) -> update(material_demo) -> render_spp(64) -> output
+     through exactly one K1 launch, timed, its K1 held against the plain
+     version on a full-width row tile; Renderer(..., early_exit=True) on
+     material_demo_open, bit-identical to early_exit=False, its tile held
+     against the plain version with early_exit=True, and the fraction of
+     paths alive after each bounce from the plain version's masks; then
+     render_image_fast(material_demo, 1024², 64 spp, 5 bounces) ->
+     mean(x+y+z) -> backward() through one K1, one K2 and one reduce
+     launch, its gradient K2's bit for bit, K2 held against the plain
+     version on a row tile of the step (relative L-inf and per leaf with
+     the pixel term) and at 64² x 4 spp on material_check, where u and v
+     carry gradient.
 Every kernel's bound is computed from this run's inputs: the FP32
 operations the plain version's masks say these paths need
 (sail_tpu_torch/utils/opcount.py) over 67 TFLOP/s, or the bytes over
@@ -96,7 +115,12 @@ FEW, MANY, MOST = 16, 64, 256
 SWEEP_COUNTS = (4, 16, 32, 64, 128, 256)
 SWEEP_SIZE, SWEEP_SPP, SWEEP_BOUNCES = 512, 8, 3
 K1_TILE = (32, 496)
-K2_TILE = {MANY: (4, 510), MOST: (16, 504)}
+K2_TILE = {MANY: (4, 510), MOST: (16, 504), "material_demo": (8, 508),
+           "cornell_mirror": (32, 496)}
+# phase 7: the check scenes' shape (the goldens'), and the samples of the
+# open scene's alive fractions at the main path's size
+CHECK = (64, 4, 3)
+ALIVE_SAMPLES = 4
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                        "goldens")
 
@@ -271,25 +295,44 @@ def gradient_path(dev, card: str) -> list:
     step_ms = statistics.median(step_ms)
     # K2 at the step's own shape and cotangent: 1/(H·W) from the mean, times
     # the Function's 1/spp, both powers of two, so the step's gradient is
-    # this call's bit for bit; and against the plain version at 64 spp
+    # this call's bit for bit; and against the plain version at 64 spp on a
+    # full-width row tile of the step (the whole image's plain K2 takes a
+    # minute or more), per leaf with the pixel term
+    from sail_tpu_torch.tools import grad_localise
     g = Vec3(*(torch.full((H, W), 1.0 / (H * W * SPP), device=dev),) * 3)
     k2_args = (params, static, g, H, W, SPP, 0, 0, BOUNCES)
     k2_runs = [cuda_ms(mk.render_grad_block, *k2_args)
                for _ in range(TIMED_RUNS)]
     k2_ms = statistics.median(ms for _, ms in k2_runs)
     got = k2_runs[0][0]
-    want, k2_plain_ms = cuda_ms(mk.render_grad_block_plain, *k2_args)
-    summary, grad_err, grad_abs, _ = grad_check(
-        f"cornell_mirror {W}x{H} spp{SPP} b{BOUNCES} (the step's shape)", got,
-        want, static)
     if not all(torch.equal(got, r) for r, _ in k2_runs):
-        raise AssertionError(f"K2 is not repeatable: {summary}")
+        raise AssertionError("K2 is not repeatable at the step's shape")
     if not torch.equal(step_grad, got):
         raise AssertionError(
             f"the step's gradient is not K2's at the same arguments: max abs "
             f"diff {float((step_grad - got).abs().max()):.3g}")
-    results.append(summary + f", bit-identical over {TIMED_RUNS} calls and "
-                   f"to the step's gradient")
+    t_rows, t_row0 = K2_TILE["cornell_mirror"]
+    gt = Vec3(*(torch.full((t_rows, W), 1.0 / (H * W * SPP), device=dev),)
+              * 3)
+    t_args = (params, static, gt, t_rows, W, SPP, 0, 0, BOUNCES)
+    kw = dict(row0=t_row0, image_height=H)
+    t_got = mk.render_grad_block(*t_args, **kw)
+    tile_ms = median_ms(mk.render_grad_block, *t_args, **kw)
+    want, k2_plain_ms = cuda_ms(mk.render_grad_block_plain, *t_args, **kw)
+    tile = (f"cornell_mirror rows {t_row0}-{t_row0 + t_rows - 1} of {H} x "
+            f"{W} spp{SPP} b{BOUNCES}")
+    summary, grad_err, grad_abs, _ = grad_check(tile + " (a tile of the step)",
+                                                t_got, want, static,
+                                                per_leaf=False)
+    where = grad_localise.check(*t_args, t_row0, H, t_got, want)
+    if where["excess"] > 1:
+        raise AssertionError(f"K2 disagrees with its plain version on a leaf:"
+                             f" {summary}, {where}")
+    results.append(summary + f"; per leaf with the pixel term: worst "
+                   f"{where['leaf_name']} = {where['excess']:.3g} of its "
+                   f"bound; K2 {tile_ms:.2f} ms on the tile; at the step's "
+                   f"shape bit-identical over {TIMED_RUNS} calls and to the "
+                   f"step's gradient")
 
     # -- 5 Adam steps on the materials and lights (diff/inverse.py's default
     # set) from a perturbed scene toward a target at the true parameters ----
@@ -325,7 +368,8 @@ def gradient_path(dev, card: str) -> list:
           f"{launches[2]} reduce launch, loss {float(loss.detach()):.6f} | fwd+bwd "
           f"{step_ms:.2f} ms = {mrays(step_ms):.1f} Mrays/s (median of "
           f"{TIMED_RUNS}) | K2 {k2_ms:.2f} ms (median of {TIMED_RUNS}) | "
-          f"plain K2 {k2_plain_ms:.1f} ms (one run) | reduce {red_ms:.3f} ms,"
+          f"plain K2 {k2_plain_ms:.1f} ms on the tile (one run) | reduce "
+          f"{red_ms:.3f} ms,"
           f" plain sum {red_plain_ms:.3f} ms | Adam lr 5e-2 x{ADAM_STEPS}: "
           f"loss {' '.join(f'{x:.6g}' for x in losses)}; sphere kd 0.6 -> "
           f"{float(fitted[off.materials[2]]):.4f} (true 1.0), light "
@@ -342,7 +386,8 @@ def gradient_path(dev, card: str) -> list:
                    "sail_tpu_torch/csrc/megakernel_grad.cu",
                    "sail_tpu/ops/pallas/megakernel.py:262", launches[1],
                    grad_abs, k2_ms, k2_plain_ms, k2_bound, shape,
-                   rel_linf=grad_err),
+                   rel_linf=grad_err, plain_shape=tile, tile_ms=tile_ms,
+                   localised=where),
         kernel_row("K2 reduce_grad_rows (K2's cross-block sum)",
                    "sail_tpu_torch/csrc/megakernel_grad.cu",
                    "sail_tpu/ops/pallas/megakernel.py:459", launches[2],
@@ -360,16 +405,17 @@ def scene_of(name: str):
     return getattr(scenes, name)()
 
 
-def renderer_path(dev, n: int, label: str):
-    """Renderer(W, H, seed=0, max_bounces=BOUNCES) -> update(n spheres) ->
-    render_spp(SPP) -> output, through exactly one K1 launch (counted from
-    0 just before), then timed.  Returns (launches, output, render_spp ms,
-    params, static)."""
+def renderer_path(dev, name: str, label: str, early_exit: bool = False):
+    """Renderer(W, H, seed=0, max_bounces=BOUNCES, early_exit=) ->
+    update(scene `name`) -> render_spp(SPP) -> output, through exactly one
+    K1 launch (counted from 0 just before), then timed.  Returns (launches,
+    output, render_spp ms, params, static, renderer)."""
     from sail_tpu_torch import Renderer
     from sail_tpu_torch.ops.cuda import megakernel as mk
-    scene = scene_of(f"spheres{n}")
+    scene = scene_of(name)
     scene.filter = "gamma"
-    r = Renderer(W, H, seed=0, max_bounces=BOUNCES)   # the card, by default
+    r = Renderer(W, H, seed=0, max_bounces=BOUNCES,   # the card, by default
+                 early_exit=early_exit)
     r.update(scene)
     mk.render_block.launches = 0
     r.render_spp(scene, SPP)
@@ -386,18 +432,19 @@ def renderer_path(dev, n: int, label: str):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     params, static = scene.pack()
-    return launches, out, statistics.median(times), params.to(dev), static
+    return (launches, out, statistics.median(times), params.to(dev), static,
+            r)
 
 
-def k1_tile(name: str, params, static, spp: int):
+def k1_tile(name: str, params, static, spp: int, early_exit: bool = False):
     """K1 (the cull as render_block chooses it) against its plain version
-    (no cull: an object the cull dropped would show) on a full-width row
-    tile of the W x H image at `spp`: (text, max abs diff, K1 ms median,
-    plain ms, shape).  Raises outside TOL."""
+    (no cull: an object the cull dropped would show; `early_exit` as
+    given) on a full-width row tile of the W x H image at `spp`: (text, max
+    abs diff, K1 ms median, plain ms, shape).  Raises outside TOL."""
     from sail_tpu_torch.ops.cuda import megakernel as mk
     rows, row0 = K1_TILE
     args = (params, static, rows, W, spp, 0, 0, BOUNCES)
-    kw = dict(row0=row0, image_height=H)
+    kw = dict(row0=row0, image_height=H, early_exit=early_exit)
     got = mk.render_block(*args, **kw)
     k1_ms = median_ms(mk.render_block, *args, **kw)
     want, plain_ms = cuda_ms(mk.render_block_plain, *args, **kw)
@@ -454,7 +501,8 @@ def many_objects(dev, card: str) -> list:
     paths, rows = [], []
     for n in (FEW, MANY):
         label = f"Renderer spheres{n} {W}x{H} spp{SPP} b{BOUNCES}"
-        launches, out, step_ms, params, static = renderer_path(dev, n, label)
+        launches, out, step_ms, params, static, _ = renderer_path(
+            dev, f"spheres{n}", label)
         full = (params, static, H, W, SPP, 0, 0, BOUNCES)
         k1_ms = median_ms(mk.render_block, *full)
         table = mk.scene_table(static)
@@ -666,6 +714,209 @@ def many_gradients(dev, card: str) -> list:
     return rows
 
 
+def materials_path(dev, card: str) -> list:
+    """Phase 7: K1 on config 3, its open twin and the check scene against
+    the plain version, golden config3; the Renderer on material_demo and,
+    with early_exit, on material_demo_open; the fwd+bwd step on
+    material_demo; K2 on the check scene.  Returns the kernels' JSON
+    entries."""
+    from sail_tpu_torch.core.camera import rays_for_pixels
+    from sail_tpu_torch.core.rng import TAG_PIXEL_JITTER, PixelNoise
+    from sail_tpu_torch.core.vecmath import Vec3
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.render import integrator
+    from sail_tpu_torch.scene.scene import unflatten
+    from sail_tpu_torch.tools import grad_localise
+
+    size, spp, bounces = CHECK
+    results = []
+    for name in ("material_demo", "material_demo_open", "material_check"):
+        params, static = scene_of(name).pack()
+        args = (params.to(dev), static, size, size, spp, 0, 0, bounces)
+        got = mk.render_block(*args)
+        want = mk.render_block_plain(*args)
+        err, bad = compare(got, want)
+        bit = torch.equal(got.stack(), want.stack())
+        results.append(f"{name} {size}x{size} spp{spp} b{bounces}: max_abs "
+                       f"{err:.3g}, {bad} over {TOL:g}, "
+                       f"{'bit-identical' if bit else 'not bit-identical'}"
+                       f", mean {float(want.stack().mean()):.4f}")
+        if bad or not float(want.stack().max()) > 0:
+            raise AssertionError(f"K1 disagrees with its plain version or "
+                                 f"renders black: {results[-1]}")
+    # golden config3 at TOL, but for the pixels whose primary ray grazes a
+    # sphere within float32 rounding (sail_tpu_torch/tools/goldens.py)
+    from sail_tpu_torch.tools.goldens import golden_check
+    ref = np.load(os.path.join(GOLDENS, "config3_material_demo.npy"))
+    params, static = scene_of("material_demo").pack()
+    img = mk.render_block(params.to(dev), static, size, size, spp, 0, 0,
+                          bounces)
+    img = (img.stack() * (1.0 / spp)).cpu().numpy()
+    gold = golden_check(img, ref, params, static, spp)
+    results.append(f"golden config3_material_demo max_abs "
+                   f"{gold['max_abs']:.3g}, pixels over {TOL:g}: "
+                   f"{gold['outside']}, of them grazing a sphere: "
+                   f"{gold['excused']}; elsewhere max_abs "
+                   f"{gold['max_abs_elsewhere']:.3g}")
+    if gold["unexplained"]:
+        raise AssertionError(f"K1 disagrees with golden config3: {gold}")
+
+    # -- the Renderer on config 3, and with early_exit on its open twin ----
+    paths, rows = [], []
+    for name, ee in (("material_demo", False), ("material_demo_open", True)):
+        label = (f"Renderer{'(early_exit=True)' if ee else ''} {name} "
+                 f"{W}x{H} spp{SPP} b{BOUNCES}")
+        launches, out, step_ms, params, static, r = renderer_path(
+            dev, name, label, early_exit=ee)
+        full = (params, static, H, W, SPP, 0, 0, BOUNCES)
+        k1_ms = median_ms(mk.render_block, *full, early_exit=ee)
+        text, err, tile_ms, plain_ms, tile = k1_tile(name, params, static,
+                                                     SPP, early_exit=ee)
+        b = bound(params, static, H, W, SPP, BOUNCES, samples=1, row_step=32)
+        extra = ""
+        if ee:   # the same image as early_exit=False, bit for bit
+            r.early_exit = False
+            r.reset()
+            r.render_spp(scene_of(name), SPP)
+            off_img = r.current().stack()
+            r.early_exit = True
+            r.reset()
+            r.render_spp(scene_of(name), SPP)
+            same = torch.equal(off_img, r.current().stack())
+            if not same:
+                raise AssertionError(f"{label}: not bit-identical to "
+                                     f"early_exit=False")
+            # the fraction of paths alive after each bounce (the plain
+            # version's masks), over ALIVE_SAMPLES samples of the image
+            scene = unflatten(params, static)
+            ii, jj = integrator.pixel_grid(H, W, 0, dev)
+            alive = torch.zeros(BOUNCES, dtype=torch.float64, device=dev)
+            with torch.no_grad():
+                for k in range(ALIVE_SAMPLES):
+                    noise = PixelNoise(0, k, ii, jj)
+                    jx, jy, _ = noise.uniform3(0, TAG_PIXEL_JITTER)
+                    ro, rd = rays_for_pixels(scene.camera, ii.float(),
+                                             jj.float(), H, W, jx, jy)
+                    alive += integrator.alive_fractions(
+                        scene, static, ro, rd, noise, BOUNCES)[0].double()
+            alive = (alive / ALIVE_SAMPLES).tolist()
+            extra = (f", bit-identical to early_exit=False; alive after "
+                     f"each bounce (plain masks, {ALIVE_SAMPLES} samples): "
+                     + "/".join(f"{100 * a:.1f}%" for a in alive))
+        paths.append(f"{label}: {launches} K1 launch, output {out.shape} "
+                     f"finite, mean {out.mean():.4f}, render_spp "
+                     f"{step_ms:.2f} ms = {mrays(step_ms):.1f} Mrays/s "
+                     f"(median of {TIMED_RUNS}), K1 {k1_ms:.2f} ms, bound "
+                     f"{b['bound_ms']:.3f} ms ({b['bound_by']}){extra} | K1 "
+                     f"vs plain on {text}")
+        entry = dict(launches_counted_on=label, plain_shape=tile,
+                     tile_ms=tile_ms)
+        if ee:
+            entry["alive_after_bounce"] = alive
+        rows.append(kernel_row(
+            f"K1-ee render_block(early_exit=True) ({name})" if ee else
+            f"K1 render_block ({name}: metal, glass, checkerboard)",
+            "sail_tpu_torch/csrc/megakernel.cu + path.cuh + bsdf.cuh",
+            "sail_tpu/render/integrator.py:227" if ee else
+            "sail_tpu/ops/pallas/megakernel.py:159", launches, err, k1_ms,
+            plain_ms, b, f"{name} {W}x{H} spp{SPP} b{BOUNCES}", **entry))
+
+    # -- the fwd+bwd step on config 3 ----------------------------------------
+    params, static = scene_of("material_demo").pack()
+    params = params.to(dev)
+    p = params.clone().requires_grad_()
+
+    def step(p, seed):
+        img = mk.render_image_fast(p, seed, static, H, W, SPP, BOUNCES)
+        loss = (img.x + img.y + img.z).mean()
+        loss.backward()
+        return loss
+
+    mk.render_block.launches = mk.render_grad_block.launches = 0
+    mk.reduce_grad_rows.launches = 0
+    loss = step(p, 0)
+    torch.cuda.synchronize()
+    launches = (mk.render_block.launches, mk.render_grad_block.launches,
+                mk.reduce_grad_rows.launches)
+    if launches != (1, 1, 1) or not (torch.isfinite(p.grad).all()
+                                     and p.grad.abs().max() > 0
+                                     and torch.isfinite(loss)):
+        raise AssertionError(f"the step on material_demo made {launches} "
+                             f"K1/K2/reduce launches, loss "
+                             f"{float(loss.detach())}, finite grad "
+                             f"{bool(torch.isfinite(p.grad).all())}")
+    step_grad = p.grad.clone()
+    times = []
+    for k in range(TIMED_RUNS):
+        p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(p, k + 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    g = Vec3(*(torch.full((H, W), 1.0 / (H * W * SPP), device=dev),) * 3)
+    full = [cuda_ms(mk.render_grad_block, params, static, g, H, W, SPP, 0, 0,
+                    BOUNCES) for _ in range(TIMED_RUNS)]
+    k2_ms = statistics.median(ms for _, ms in full)
+    if not all(torch.equal(step_grad, r) for r, _ in full):
+        raise AssertionError(
+            f"the step's gradient on material_demo is not K2's at the same "
+            f"arguments: max abs diff "
+            f"{float((step_grad - full[0][0]).abs().max()):.3g}")
+    t_rows, row0 = K2_TILE["material_demo"]
+    gt = Vec3(*(torch.full((t_rows, W), 1.0 / (H * W * SPP), device=dev),)
+              * 3)
+    args = (params, static, gt, t_rows, W, SPP, 0, 0, BOUNCES)
+    kw = dict(row0=row0, image_height=H)
+    got = mk.render_grad_block(*args, **kw)
+    tile_ms = median_ms(mk.render_grad_block, *args, **kw)
+    want, plain_ms = cuda_ms(mk.render_grad_block_plain, *args, **kw)
+    shape = (f"material_demo rows {row0}-{row0 + t_rows - 1} of {H} x {W} "
+             f"spp{SPP} b{BOUNCES}")
+    summary, err, abs_err, _ = grad_check(shape, got, want, static,
+                                          per_leaf=False)
+    where = grad_localise.check(*args, row0, H, got, want)
+    if where["excess"] > 1:
+        raise AssertionError(f"K2 disagrees with its plain version on a leaf:"
+                             f" {summary}, {where}")
+    b = bound(params, static, H, W, SPP, BOUNCES, grad=True, samples=1,
+              row_step=32)
+    # K2 on the check scene, where u and v carry gradient
+    rng = np.random.default_rng(2)
+    c_params, c_static = scene_of("material_check").pack()
+    gc = Vec3(*(torch.from_numpy(rng.uniform(0.1, 1.0, (size, size))
+                                 .astype(np.float32)).to(dev)
+                for _ in range(3)))
+    c_args = (c_params.to(dev), c_static, gc, size, size, spp, 0, 0, bounces)
+    c_got = mk.render_grad_block(*c_args)
+    c_want = mk.render_grad_block_plain(*c_args)
+    c_summary = grad_check(f"material_check {size}x{size} spp{spp} "
+                           f"b{bounces} ({c_params.numel()} params)", c_got,
+                           c_want, c_static)[0]
+    print(f"phase 7 materials and early exit: K1 vs plain: "
+          + "; ".join(results) + " | " + " | ".join(paths) + f" | step "
+          f"render_image_fast material_demo {W}x{H} spp{SPP} b{BOUNCES} -> "
+          f"mean(x+y+z) -> backward: {launches[0]} K1, {launches[1]} K2, "
+          f"{launches[2]} reduce launch, loss {float(loss.detach()):.6g}, "
+          f"fwd+bwd {step_ms:.1f} ms = {mrays(step_ms):.1f} Mrays/s (median "
+          f"of {TIMED_RUNS}), K2 {k2_ms:.1f} ms, bound {b['bound_ms']:.3f} ms"
+          f" ({b['bound_by']}), the step's gradient K2's bit for bit | "
+          f"{summary}; per leaf with the pixel term: worst "
+          f"{where['leaf_name']} K2 {where['k2']:.6g} plain "
+          f"{where['plain']:.6g} = {where['excess']:.3g} of its bound; K2 "
+          f"{tile_ms:.2f} ms, plain {plain_ms:.1f} ms on the tile | K2 vs "
+          f"plain: {c_summary} | {card}", flush=True)
+    rows.append(kernel_row(
+        "K2 render_grad_block (material_demo: metal, glass, checkerboard)",
+        "sail_tpu_torch/csrc/megakernel_grad.cu + adjoint.cuh + bsdf.cuh",
+        "sail_tpu/ops/pallas/megakernel.py:262", launches[1], abs_err, k2_ms,
+        plain_ms, b, f"material_demo {W}x{H} spp{SPP} b{BOUNCES}",
+        rel_linf=err, launches_counted_on="the fwd+bwd step on "
+        "material_demo", plain_shape=shape, tile_ms=tile_ms, localised=where))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -686,9 +937,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     usage = {**build.resource_usage("megakernel"),
              **build.resource_usage("megakernel_grad")}
-    for kernel in (*(f"render_block_kernel<{a}, {c}>" for a in ("false", "true")
-                     for c in ("false", "true")), "reduce_grad_rows_kernel",
-                   *(f"render_grad_kernel<{cap}>" for cap in mk.GRAD_CAPS)):
+    flags = ("false", "true")
+    for kernel in (*(f"render_block_kernel<{a}, {c}, {m}>" for a in flags
+                     for c in flags for m in flags), "reduce_grad_rows_kernel",
+                   *(f"render_grad_kernel<{cap}, {m}>" for cap in mk.GRAD_CAPS
+                     for m in flags)):
         if kernel not in usage:
             raise AssertionError(f"no -Xptxas -v report for {kernel}")
     print(card)
@@ -805,6 +1058,7 @@ def main() -> int:
                     f"cornell_mirror {W}x{H} spp{SPP} b{BOUNCES}")
     kernels = [k1] + gradient_path(dev, card)
     kernels += many_objects(dev, card) + many_gradients(dev, card)
+    kernels += materials_path(dev, card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

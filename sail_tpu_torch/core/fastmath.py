@@ -1,9 +1,9 @@
-"""Polynomial arctangent and arccosine.
+"""Polynomial arctangents and arccosine, and tan as sin/cos.
 
 Port of `sail_tpu/core/fastmath.py`: the same degree-11 minimax polynomial
 (max error ~1e-7), not `torch.atan2` or libdevice, so the port computes the
-estimator the TPU kernels compute.  The CUDA megakernel carries the same
-polynomial (`csrc/megakernel.cu`, `atan2_poly`).
+estimator the TPU kernels compute.  The CUDA megakernels carry the same
+functions (`csrc/path.cuh`, `atan2_poly`, `atan_poly1`, `tan_sc`).
 """
 from __future__ import annotations
 
@@ -46,3 +46,18 @@ def acos(x):
     x = clip(x, -1.0, 1.0)
     s = torch.sqrt(clip(1.0 - x * x, 1e-20))
     return atan2(s, x)
+
+
+def atan(x):
+    """One-argument arctangent: the polynomial on |x| <= 1, reflected above."""
+    big = torch.abs(x) > 1.0
+    inv = 1.0 / torch.where(x == 0.0, 1e-30, x)
+    r = _atan_poly(torch.where(big, inv, x))
+    s = torch.where(x >= 0.0, PI_2, -PI_2)
+    return torch.where(big, s - r, r)
+
+
+def tan(x):
+    """tan as sin/cos, the cosine kept off 0 (JAX's, for Mosaic)."""
+    c = torch.cos(x)
+    return torch.sin(x) / torch.where(torch.abs(c) < 1e-20, 1e-20, c)

@@ -36,6 +36,11 @@ class Vec3(NamedTuple):
             return Vec3(self.x * o.x, self.y * o.y, self.z * o.z)
         return Vec3(self.x * o, self.y * o, self.z * o)
 
+    def __truediv__(self, o):
+        if isinstance(o, Vec3):
+            return Vec3(self.x / o.x, self.y / o.y, self.z / o.z)
+        return Vec3(self.x / o, self.y / o, self.z / o)
+
     def __neg__(self):
         return Vec3(-self.x, -self.y, -self.z)
 
@@ -150,6 +155,24 @@ def ortho(d: Vec3) -> Vec3:
     return where(big, Vec3(d.y, -d.x, zz), Vec3(zx, d.z, -d.y))
 
 
+def reflect(wo: Vec3, n: Vec3) -> Vec3:
+    """Mirror direction of incoming -wo about n: GLSL reflect(-wo, n)."""
+    return n * (2.0 * wo.dot(n)) - wo
+
+
+def refract_dir(i: Vec3, n: Vec3, eta):
+    """GLSL refract of incident `i` about `n` with eta = etaI/etaT:
+    (direction, total-internal-reflection mask); the zero vector on TIR.
+    The double `where` keeps sqrt's input positive on TIR lanes, so the
+    backward pass stays finite there."""
+    cos_i = -i.dot(n)
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    tir = k < 0.0
+    k_safe = torch.where(tir, 1.0, clip(k, 1e-12))
+    d = i * eta + n * (eta * cos_i - torch.sqrt(k_safe))
+    return where(tir, zeros_vec(d.shape, d.x), d), tir
+
+
 # -- misc -------------------------------------------------------------------
 
 def quadratic(a, b, c):
@@ -167,7 +190,20 @@ def quadratic(a, b, c):
     return ok, torch.minimum(t0, t1), torch.maximum(t0, t1)
 
 
+def spherical_direction(sin_theta, cos_theta, phi) -> Vec3:
+    return Vec3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+                cos_theta)
+
+
 # -- shading-space trig (local frame, z = normal) ---------------------------
+
+def cos_theta(w: Vec3):
+    return w.z
+
+
+def cos2_theta(w: Vec3):
+    return w.z * w.z
+
 
 def abs_cos_theta(w: Vec3):
     return torch.abs(w.z)
@@ -179,6 +215,16 @@ def sin2_theta(w: Vec3):
 
 def sin_theta(w: Vec3):
     return torch.sqrt(clip(sin2_theta(w), 1e-12))
+
+
+def tan2_theta(w: Vec3):
+    """1e5 where cos²θ < 1e-5; the division sees 1 there (a double
+    `where`), so its derivative meets no 0/0 on the lanes it does not
+    give."""
+    c2 = cos2_theta(w)
+    near = c2 < 1e-5
+    return torch.where(near, 1e5, sin2_theta(w)
+                       / clip(torch.where(near, 1.0, c2), 1e-20))
 
 
 def cos_phi(w: Vec3):
@@ -195,3 +241,13 @@ def sin_phi(w: Vec3):
 
 def same_hemisphere(w: Vec3, wp: Vec3):
     return w.z * wp.z > 1e-5
+
+
+def cos2_phi(w: Vec3):
+    c = cos_phi(w)
+    return c * c
+
+
+def sin2_phi(w: Vec3):
+    s = sin_phi(w)
+    return s * s

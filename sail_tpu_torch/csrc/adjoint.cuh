@@ -19,10 +19,12 @@
 // A path that misses or dies leaves the loop: the masked JAX loop gives such
 // lanes exactly zero cotangent from then on.  The radiance sum's cotangent is
 // the pixel's g at every bounce (e' = e + thr . contrib), so e is not stored.
-// A hit's u, v feed nothing in the ported categories (UNIFORM_COLOR ignores
-// them); only the hyperboloid's normal reads the fastmath atan2 (`atan2_adj`).
-// Every shape category has its hit adjoint; the bound boxes and the cull are
-// comparisons and take none.
+// A hit's u, v carry the cotangent the Bilerp and UV textures give them
+// (`texture_adj`; the checkerboards go through floor and give none) into
+// every shape's hit adjoint, through the fastmath atan2 and acos (`atan2_adj`,
+// `acos_adj`).  Every shape category has its hit adjoint; the bound boxes and
+// the cull are comparisons and take none.  Metal and glass samples take
+// theirs by forward-mode tangents over bsdf.cuh's code (`material_adj`).
 #pragma once
 
 #include "path.cuh"
@@ -241,6 +243,32 @@ __device__ void atan2_adj(float y, float x, float d, float& d_y, float& d_x) {
   }
 }
 
+// acos_poly(x) = atan2_poly(sqrtf(fmaxf(1 - c*c, 1e-20)), c), c = clamp(x,
+// -1, 1): the cotangent d of its value onto x.
+__device__ void acos_adj(float x, float d, float& d_x) {
+  float c = clampf(x, F(-1.0), F(1.0));
+  float m = F(1.0) - c * c;
+  float sq = sqrtf(fmaxf(m, F(1e-20)));
+  float d_s = 0.f, d_c = 0.f;
+  atan2_adj(sq, c, d, d_s, d_c);
+  d_c += d_s * (F(0.5) / sq) * max_fac(m, F(1e-20)) * (F(-2.0) * c);
+  d_x += d_c * clamp_fac(x, F(-1.0), F(1.0));
+}
+
+// u = phi_of(x, y) / 2 pi (path.cuh): the cotangent d_u onto x and y.
+__device__ __forceinline__ void phi_u_adj(float x, float y, float d_u, float& d_x, float& d_y) {
+  if (d_u != 0.f) atan2_adj(y, x, d_u / F(TWO_PI), d_y, d_x);
+}
+
+// q = safe_div(num, den) (path.cuh): the cotangent d onto num and den.
+__device__ __forceinline__ void safe_div_adj(float num, float den, float d, float& d_num, float& d_den) {
+  const float eps = F(1e-12);
+  bool small = fabsf(den) < eps;
+  float den_s = small ? (den < 0.f ? -eps : eps) : den;
+  d_num += d / den_s;
+  if (!small) d_den += -d * (num / den_s) / den_s;
+}
+
 // o = to_object(ro - pos), d = to_object(rd): cotangents of o and d onto ro,
 // rd and the object's position (offset `off`).
 __device__ __forceinline__ void ray_to_object_adj(int off, V3 d_o, V3 d_d, V3& d_ro, V3& d_rd,
@@ -253,13 +281,15 @@ __device__ __forceinline__ void ray_to_object_adj(int off, V3 d_o, V3 d_d, V3& d
 
 // ------------------------------------------------------------ shapes ----
 // Each hit adjoint takes the cotangents of the winner's hit point p,
-// geometric normal ng and tangent dpdu, and adds onto ro, rd and the
-// object's parameters (offset `off`).  It recomputes the forward values with
-// path.cuh's expressions.  u and v feed nothing in the ported categories
-// (UNIFORM_COLOR ignores them) and take no cotangent.
+// geometric normal ng, tangent dpdu and, with UV (a scene whose textures
+// read them: path.cuh's MATS), texture coordinates u, v, and adds onto ro,
+// rd and the object's parameters (offset `off`).  Without UV the u, v code
+// is left out.  It recomputes the forward values with path.cuh's
+// expressions.
 
+template <bool UV>
 __device__ void sphere_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_ng,
-                               V3 d_dpdu, V3& d_ro, V3& d_rd, float* G) {
+                               V3 d_dpdu, float d_u, float d_v, V3& d_ro, V3& d_rd, float* G) {
   V3 c = P3(s, off);
   float r = P(s, off + 3);
   V3 o = to_object(ro - c), d = to_object(rd);
@@ -285,6 +315,15 @@ __device__ void sphere_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3
   V3 dt = to_object(d_dpdu);
   dh.y += F(-TWO_PI) * dt.x;
   dh.x += F(TWO_PI) * dt.y;
+  // u = phi_of(h.x, h.y) / 2 pi; v = acos(clamp(h.z / r, -1 + 1e-6, 1 - 1e-6)) / pi
+  if (UV) phi_u_adj(h.x, h.y, d_u, dh.x, dh.y);
+  if (UV && d_v != 0.f) {
+    float qz = h.z / r, d_ct = 0.f;
+    acos_adj(clampf(qz, F(-1.0 + 1e-6), F(1.0 - 1e-6)), d_v / F(PI), d_ct);
+    float d_qz = d_ct * clamp_fac(qz, F(-1.0 + 1e-6), F(1.0 - 1e-6));
+    dh.z += d_qz / r;
+    d_r += -d_qz * qz / r;
+  }
   if (pole) {
     d_r += F(1e-5) * dh.x;
     dh.x = 0.f;
@@ -322,8 +361,9 @@ __device__ void rect_frame_adj(int off, const RectFrame& f, V3 d_ex, V3 d_ey, V3
   gadd3(G, off, -d_ext);
 }
 
+template <bool UV>
 __device__ void rect_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_ng, V3 d_dpdu,
-                             V3& d_ro, V3& d_rd, float* G) {
+                             float d_u, float d_v, V3& d_ro, V3& d_rd, float* G) {
   RectFrame f = rect_frame(s, off);
   V3 w = ro - P3(s, off);
   V3 d_l = world_to_local(rd, f.n, f.ss, f.ts);
@@ -338,6 +378,13 @@ __device__ void rect_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d
   d_ss = d_ss + d_p * hl.x;
   d_ts = d_ts + d_p * hl.y;
   d_n = d_n + d_p * hl.z;
+  if (UV) {  // u = hl.x / fmaxf(len_x, 1e-20); v = hl.y / fmaxf(len_y, 1e-20)
+    float mx = fmaxf(f.len_x, F(1e-20)), my = fmaxf(f.len_y, F(1e-20));
+    d_hl.x += d_u / mx;
+    d_hl.y += d_v / my;
+    length_adj(f.ex, -d_u * (hl.x / mx) / mx * max_fac(f.len_x, F(1e-20)), d_ex);
+    length_adj(f.ey, -d_v * (hl.y / my) / my * max_fac(f.len_y, F(1e-20)), d_ey);
+  }
   // hl = o_l + d_l * t; t = -o_l.z / d_l.z
   V3 d_ol = d_hl, d_dl = d_hl * t;
   float d_t = dot(d_hl, d_l);
@@ -354,9 +401,31 @@ __device__ void rect_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d
 // A box's (cube, Cornell box) normal, tangent and wall colors are constant
 // where they are defined, so only p = ro + rd * t carries a cotangent: t is
 // the slab test's tnear where a cube is hit from outside, else its tfar.
-__device__ void box_hit_adj(const Scene& s, int off, bool cube, V3 ro, V3 rd, V3 d_p, V3& d_ro,
-                            V3& d_rd, float* G) {
+template <bool UV>
+__device__ void box_hit_adj(const Scene& s, int off, bool cube, V3 ro, V3 rd, V3 d_p, float d_u,
+                            float d_v, V3& d_ro, V3& d_rd, float* G) {
   V3 bmin = P3(s, off), bmax = P3(s, off + 3);
+  if (UV && cube && (d_u != 0.f || d_v != 0.f)) {  // box_uv: rel = safe_div(p - bmin, bmax - bmin)
+    V3 p = ro + rd * cube_t(s, off, ro, rd);
+    V3 n = box_normal(p, bmin, bmax);
+    bool on_x = fabsf(n.x) > F(0.5), on_y = fabsf(n.y) > F(0.5);
+    V3 d_rel = {0.f, 0.f, 0.f};
+    if (on_x) {
+      d_rel.y += d_u;
+      d_rel.z += d_v;
+    } else {
+      d_rel.x += d_u;
+      if (on_y) d_rel.z += d_v;
+      else d_rel.y += d_v;
+    }
+    V3 d_num = {0.f, 0.f, 0.f}, d_den = {0.f, 0.f, 0.f}, num = p - bmin, ext = bmax - bmin;
+    safe_div_adj(num.x, ext.x, d_rel.x, d_num.x, d_den.x);
+    safe_div_adj(num.y, ext.y, d_rel.y, d_num.y, d_den.y);
+    safe_div_adj(num.z, ext.z, d_rel.z, d_num.z, d_den.z);
+    d_p = d_p + d_num;
+    gadd3(G, off, -(d_num + d_den));
+    gadd3(G, off + 3, d_den);
+  }
   V3 inv = {safe_div(F(1.0), rd.x), safe_div(F(1.0), rd.y), safe_div(F(1.0), rd.z)};
   V3 lo = bmin - ro, hi = bmax - ro;
   V3 tmin = lo * inv, tmax = hi * inv;
@@ -414,8 +483,9 @@ __device__ void quadric_tail_adj(int off, V3 q, V3 dpdv, V3 d_p, V3 d_ng, V3 d_d
 
 // cone / cylinder params: p[3], h, r.  t through the clipped quadratic; the
 // cone's dpdv through v = q.z / h.
+template <bool UV>
 __device__ void frustum_hit_adj(const Scene& s, int off, bool cone, V3 ro, V3 rd, V3 d_p, V3 d_ng,
-                                V3 d_dpdu, V3& d_ro, V3& d_rd, float* G) {
+                                V3 d_dpdu, float d_u, float d_vt, V3& d_ro, V3& d_rd, float* G) {
   float hh = P(s, off + 3), r = P(s, off + 4);
   V3 o, d;
   float t = cone ? cone_t(s, off, ro, rd, o, d) : cylinder_t(s, off, ro, rd, o, d);
@@ -441,12 +511,15 @@ __device__ void frustum_hit_adj(const Scene& s, int off, bool cone, V3 ro, V3 rd
   }
   V3 d_q = {0.f, 0.f, 0.f}, d_dpdv = {0.f, 0.f, 0.f};
   quadric_tail_adj(off, q, dpdv, d_p, d_ng, d_dpdu, d_q, d_dpdv, G);
-  float d_hh = d_dpdv.z, d_r = 0.f;
+  if (UV) phi_u_adj(q.x, q.y, d_u, d_q.x, d_q.y);  // u = phi_of(q.x, q.y) / 2 pi
+  float d_hh = d_dpdv.z, d_r = 0.f, d_v = UV ? d_vt : 0.f;
   if (cone) {  // dpdv.xy = -q.xy * inv1mv; inv1mv = 1 / (1 - v) unless |1 - v| < 1e-12
     d_q.x += -d_dpdv.x * inv1mv;
     d_q.y += -d_dpdv.y * inv1mv;
     float d_inv = -(d_dpdv.x * q.x + d_dpdv.y * q.y);
-    float d_v = fabsf(den) < F(1e-12) ? 0.f : d_inv * inv1mv * inv1mv;
+    d_v += fabsf(den) < F(1e-12) ? 0.f : d_inv * inv1mv * inv1mv;
+  }
+  if (UV || cone) {  // v = q.z / h
     d_q.z += d_v / hh;
     d_hh += -d_v * v / hh;
   }
@@ -476,16 +549,31 @@ __device__ void frustum_hit_adj(const Scene& s, int off, bool cone, V3 ro, V3 rd
   ray_to_object_adj(off, d_o, d_d, d_ro, d_rd, G);
 }
 
-// disk params: p[3], r, inner_r.  The normal is constant; r and inner_r only
-// decide the hit.
-__device__ void disk_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_dpdu, V3& d_ro,
-                             V3& d_rd, float* G) {
+// disk params: p[3], r, inner_r.  The normal is constant; r and inner_r reach
+// the hit's v.
+template <bool UV>
+__device__ void disk_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_dpdu, float d_u,
+                             float d_v, V3& d_ro, V3& d_rd, float* G) {
   V3 o = to_object(ro - P3(s, off)), d = to_object(rd);
   float t = -safe_div(o.z, d.z);  // |d.z| > 1e-12 on a hit
   gadd3(G, off, d_p);
   V3 d_q = to_object(d_p), d_du = to_object(d_dpdu);
   d_q.y += F(-TWO_PI) * d_du.x;
   d_q.x += F(TWO_PI) * d_du.y;
+  V3 q = o + d * t;
+  if (UV) phi_u_adj(q.x, q.y, d_u, d_q.x, d_q.y);
+  if (UV && d_v != 0.f) {  // v = 1 - safe_div(r_hit - inner_r, r - inner_r)
+    float r = P(s, off + 3), ir = P(s, off + 4);
+    float r_hit = sqrtf(q.x * q.x + q.y * q.y);
+    float d_rh = 0.f, d_den = 0.f;
+    safe_div_adj(r_hit - ir, r - ir, -d_v, d_rh, d_den);
+    gadd(G, off + 3, d_den);
+    gadd(G, off + 4, -d_rh - d_den);
+    if (r_hit > 0.f) {
+      d_q.x += d_rh * q.x / r_hit;
+      d_q.y += d_rh * q.y / r_hit;
+    }
+  }
   // q = o + d * t; t = -o.z / d.z
   V3 d_o = d_q, d_d = d_q * t;
   float d_t = dot(d_q, d);
@@ -496,8 +584,10 @@ __device__ void disk_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d
 
 // hyperboloid params: p[3], p1[3], p2[3], ah, ch.  dpdv turns with
 // phi = atan2 of the hit against the profile point pr = lerp(p1, p2, v).
+template <bool UV>
 __device__ void hyperboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_ng,
-                                    V3 d_dpdu, V3& d_ro, V3& d_rd, float* G) {
+                                    V3 d_dpdu, float d_u, float d_vt, V3& d_ro, V3& d_rd,
+                                    float* G) {
   V3 p1 = P3(s, off + 3), p2 = P3(s, off + 6);
   float ah = P(s, off + 9), ch = P(s, off + 10);
   V3 o, d;
@@ -523,7 +613,9 @@ __device__ void hyperboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_
   V3 d_dd = {d_dpdv.x * cp + d_dpdv.y * sp, -d_dpdv.x * sp + d_dpdv.y * cp, d_dpdv.z};
   float d_cp = d_dpdv.x * dx + d_dpdv.y * dy, d_sp = -d_dpdv.x * dy + d_dpdv.y * dx;
   float d_X = 0.f, d_Y = 0.f;
-  atan2_adj(Y, X, d_sp * cp - d_cp * sp, d_Y, d_X);
+  float d_phi = d_sp * cp - d_cp * sp;
+  if (UV) d_phi += d_u / F(TWO_PI);  // u = phi / 2 pi
+  atan2_adj(Y, X, d_phi, d_Y, d_X);
   // X = pr.x q.x + pr.y q.y; Y = pr.x q.y - q.x pr.y (pr.z feeds nothing)
   V3 d_pr = {d_X * q.x + d_Y * q.y, d_X * q.y - d_Y * q.x, 0.f};
   d_q.x += d_X * pr.x - d_Y * pr.y;
@@ -531,6 +623,7 @@ __device__ void hyperboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_
   V3 d_p1 = d_pr * (F(1.0) - v) - d_dd, d_p2 = d_pr * v + d_dd;
   // v = (q.z - p1.z) / (p2.z - p1.z), the denominator kept off 0
   float d_v = dot(d_pr, p2) - dot(d_pr, p1);
+  if (UV) d_v += d_vt;
   float d_num = d_v / vden_s;
   d_q.z += d_num;
   d_p1.z -= d_num;
@@ -561,8 +654,9 @@ __device__ void hyperboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_
 
 // paraboloid params: p[3], z0, z1, r.  zmin/zmax take JAX's tie rule; k and
 // dpdv read them.
+template <bool UV>
 __device__ void paraboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_ng,
-                                   V3 d_dpdu, V3& d_ro, V3& d_rd, float* G) {
+                                   V3 d_dpdu, float d_u, float d_v, V3& d_ro, V3& d_rd, float* G) {
   float z0 = P(s, off + 3), z1 = P(s, off + 4), r = P(s, off + 5);
   V3 o, d;
   float t = paraboloid_t(s, off, ro, rd, o, d);
@@ -587,6 +681,12 @@ __device__ void paraboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p
   d_q.x += ax * dz;
   d_q.y += ay * dz;
   if (!hz_small) d_q.z += F(2.0) * -(ax * dpdv.x + ay * dpdv.y);
+  float d_vnum = 0.f, d_vden = 0.f;
+  if (UV) {  // u = phi_of(q.x, q.y) / 2 pi; v = safe_div(q.z - zmin, zmax - zmin)
+    phi_u_adj(q.x, q.y, d_u, d_q.x, d_q.y);
+    safe_div_adj(q.z - zmin, dz, d_v, d_vnum, d_vden);
+    d_q.z += d_vnum;
+  }
   // q = o + d * t
   V3 d_o = d_q, d_d = d_q * t;
   float d_a = 0.f, d_b = 0.f, d_c = 0.f;
@@ -601,6 +701,10 @@ __device__ void paraboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p
   d_o.z -= d_c;
   // k = zmax / (r * r), the denominator kept off 0
   float d_zmax = d_dz + d_k / rr_s, d_zmin = -d_dz, d_r = 0.f;
+  if (UV) {
+    d_zmax += d_vden;
+    d_zmin -= d_vnum + d_vden;
+  }
   if (!rr_small) d_r += F(2.0) * r * (-d_k * k / rr_s);
   float d_z0 = 0.f, d_z1 = 0.f;
   max_adj(z0, z1, d_zmax, d_z0, d_z1);
@@ -611,10 +715,106 @@ __device__ void paraboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p
   ray_to_object_adj(off, d_o, d_d, d_ro, d_rd, G);
 }
 
+// ------------------------------------------------- materials, textures ----
+// The adjoint of a METAL or GLASS sample (bsdf.cuh sample_material_t): the
+// cotangents d_w of its weight (before the clip) and d_wi of its direction
+// onto wo, sc and the material's parameters.  Forward mode: the sample's
+// inputs are seeded DUAL_N at a time as tangents of a `Dual` run of the same
+// code, and each output tangent is contracted with its cotangent.  The
+// uniforms and the lobe choices carry none.
+__device__ void material_adj(const Scene& s, const Bounce& v, V3 d_w, V3 d_wi, V3& d_wo, V3& d_sc,
+                             float* G) {
+  constexpr int MAX_IN = 6 + MAX_MAT_PARAMS;
+  const int n_in = 6 + material_params(v.mcat);
+  float x[MAX_IN], d_in[MAX_IN];
+  x[0] = v.wo.x; x[1] = v.wo.y; x[2] = v.wo.z;
+  x[3] = v.sc.x; x[4] = v.sc.y; x[5] = v.sc.z;
+#pragma unroll
+  for (int k = 6; k < MAX_IN; ++k) x[k] = k < n_in ? P(s, v.moff + k - 6) : 0.f;
+#pragma unroll
+  for (int k = 0; k < MAX_IN; ++k) d_in[k] = 0.f;
+  // every index below is a constant once unrolled, so the tangents stay in
+  // registers rather than local memory
+  for (int c0 = 0; c0 < n_in; c0 += DUAL_N) {
+    Dual in[MAX_IN];
+#pragma unroll
+    for (int k = 0; k < MAX_IN; ++k) {
+      in[k].v = x[k];
+#pragma unroll
+      for (int j = 0; j < DUAL_N; ++j) in[k].d[j] = k == c0 + j ? 1.f : 0.f;
+    }
+    Vt<Dual> wo = {in[0], in[1], in[2]}, sc = {in[3], in[4], in[5]}, wi, w;
+    sample_material_t<Dual>(v.mcat, v.kind, in + 6, sc, v.u1, v.u2, v.u_lobe, wo, v.into, wi, w);
+#pragma unroll
+    for (int j = 0; j < DUAL_N; ++j) {
+      float t = d_wi.x * wi.x.d[j] + d_wi.y * wi.y.d[j] + d_wi.z * wi.z.d[j] + d_w.x * w.x.d[j] +
+                d_w.y * w.y.d[j] + d_w.z * w.z.d[j];
+#pragma unroll
+      for (int k = 0; k < MAX_IN; ++k)
+        if (k == c0 + j) d_in[k] = t;
+    }
+  }
+  d_wo = d_wo + V3{d_in[0], d_in[1], d_in[2]};
+  d_sc = d_sc + V3{d_in[3], d_in[4], d_in[5]};
+#pragma unroll
+  for (int k = 6; k < MAX_IN; ++k)
+    if (k < n_in) gadd(G, v.moff + k - 6, d_in[k]);
+}
+
+// The adjoint of the surface color (bsdf.cuh texture_color): the cotangent
+// d_sc onto the texture row's parameters and onto the hit's u and v.  The
+// checkerboards go through floor (no u, v cotangent), and Checkerboard's
+// colors are constants.
+__device__ void texture_adj(const Scene& s, const Bounce& v, V3 d_sc, float& d_u, float& d_v,
+                            float* G) {
+  const int off = v.tex_off;
+  const float u = v.h.u, w = v.h.v;
+  switch (v.tcat) {
+    case CHECKERBOARD: return;
+    case CHECKERBOARD2: {
+      float size = P(s, off + 6);
+      float m = fmodf(floorf(u / size) + floorf(w / size), F(2.0));
+      if (m != 0.f && m < 0.f) m += F(2.0);
+      gadd3(G, m < F(0.5) ? off : off + 3, d_sc);
+      return;
+    }
+    case BILERP: {
+      float a = (F(1.0) - u) * (F(1.0) - w), b = (F(1.0) - u) * w, c = u * (F(1.0) - w), d = u * w;
+      gadd3(G, off, d_sc * a);
+      gadd3(G, off + 3, d_sc * b);
+      gadd3(G, off + 6, d_sc * c);
+      gadd3(G, off + 9, d_sc * d);
+      float g00 = dot(d_sc, P3(s, off)), g01 = dot(d_sc, P3(s, off + 3));
+      float g10 = dot(d_sc, P3(s, off + 6)), g11 = dot(d_sc, P3(s, off + 9));
+      d_u += -g00 * (F(1.0) - w) - g01 * w + g10 * (F(1.0) - w) + g11 * w;
+      d_v += -g00 * (F(1.0) - u) + g01 * (F(1.0) - u) - g10 * u + g11 * u;
+      return;
+    }
+    case MIXF: {  // c1 (1 - t) + c2 t
+      float t = P(s, off + 6);
+      gadd3(G, off, d_sc * (F(1.0) - t));
+      gadd3(G, off + 3, d_sc * t);
+      gadd(G, off + 6, dot(d_sc, P3(s, off + 3)) - dot(d_sc, P3(s, off)));
+      return;
+    }
+    case SCALE:
+      gadd3(G, off, d_sc * P3(s, off + 3));
+      gadd3(G, off + 3, d_sc * P3(s, off));
+      return;
+    case UVF:  // (u - floor(u), v - floor(v), 0)
+      d_u += d_sc.x;
+      d_v += d_sc.y;
+      return;
+  }
+  gadd3(G, off, d_sc);  // UNIFORM_COLOR
+}
+
 // ------------------------------------------------------------ bounce ----
 // Adjoint of `bounce` from input state `st` (whose record is `v`): takes the
 // cotangents of the output ro, rd, thr in d_ro, d_rd, d_thr and replaces them
-// with those of the input; adds the parameters' share to G.
+// with those of the input; adds the parameters' share to G.  MATS as in
+// path.cuh: without it the scene has only matte, mirror and uniform colors.
+template <bool MATS>
 __device__ void bounce_adj(const Scene& s, const PathState& st, const Bounce& v, V3 g, V3& d_ro,
                            V3& d_rd, V3& d_thr, float* G) {
   // e' = e + thr * contrib; thr' = thr * weight
@@ -683,14 +883,20 @@ __device__ void bounce_adj(const Scene& s, const PathState& st, const Bounce& v,
     }
     gadd(G, v.moff, d_kd);
     gadd(G, v.moff + 1, d_sigma);
-  } else {  // MIRROR: weight_raw = sc * kr; wi = (-wo.x, -wo.y, wo.z)
+  } else if (!MATS || v.mcat == MIRROR) {  // weight_raw = sc * kr; wi = (-wo.x, -wo.y, wo.z)
     float kr = P(s, v.moff);
     d_sc = d_sc + d_wr * kr;
     gadd(G, v.moff, dot(d_wr, v.sc));
     d_wo = d_wo + V3{-d_wi.x, -d_wi.y, d_wi.z};
+  } else {
+    material_adj(s, v, d_wr, d_wi, d_wo, d_sc, G);
   }
   if (v.emit_on) gadd3(G, v.eoff, d_contrib);
-  if (!v.h.use_sc) gadd3(G, v.tex_off, d_sc);  // Cornell walls: constant color
+  float d_u = 0.f, d_v = 0.f;
+  if (!v.h.use_sc) {  // Cornell walls: constant color
+    if (MATS) texture_adj(s, v, d_sc, d_u, d_v, G);
+    else gadd3(G, v.tex_off, d_sc);
+  }
 
   // wo = world_to_local(-rd, n, ss, ts)
   V3 d_mrd = {0.f, 0.f, 0.f};
@@ -719,20 +925,27 @@ __device__ void bounce_adj(const Scene& s, const PathState& st, const Bounce& v,
   const int cat = obj_cat(s, v.obj);
   const V3 ro = st.ro, rd = st.rd;
   switch (cat) {
-    case SPHERE: sphere_hit_adj(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G); break;
-    case RECTANGLE: rect_hit_adj(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G); break;
-    case CUBE: case CORNELLBOX: box_hit_adj(s, v.off, cat == CUBE, ro, rd, d_p, d_ro, d_rd, G); break;
-    case CONE: case CYLINDER:
-      frustum_hit_adj(s, v.off, cat == CONE, ro, rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G);
+    case SPHERE: sphere_hit_adj<MATS>(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_u, d_v, d_ro, d_rd, G); break;
+    case RECTANGLE: rect_hit_adj<MATS>(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_u, d_v, d_ro, d_rd, G); break;
+    case CUBE: case CORNELLBOX:
+      box_hit_adj<MATS>(s, v.off, cat == CUBE, ro, rd, d_p, d_u, d_v, d_ro, d_rd, G);
       break;
-    case DISK: disk_hit_adj(s, v.off, ro, rd, d_p, d_dpdu, d_ro, d_rd, G); break;
-    case HYPERBOLOID: hyperboloid_hit_adj(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G); break;
-    case PARABOLOID: paraboloid_hit_adj(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_ro, d_rd, G); break;
+    case CONE: case CYLINDER:
+      frustum_hit_adj<MATS>(s, v.off, cat == CONE, ro, rd, d_p, d_ng, d_dpdu, d_u, d_v, d_ro, d_rd, G);
+      break;
+    case DISK: disk_hit_adj<MATS>(s, v.off, ro, rd, d_p, d_dpdu, d_u, d_v, d_ro, d_rd, G); break;
+    case HYPERBOLOID:
+      hyperboloid_hit_adj<MATS>(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_u, d_v, d_ro, d_rd, G);
+      break;
+    case PARABOLOID:
+      paraboloid_hit_adj<MATS>(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_u, d_v, d_ro, d_rd, G);
+      break;
   }
 }
 
 // ------------------------------------------------------------- pixel ----
 // Adds d(g . radiance)/d(params) of one sample of pixel (row, col) to G.
+template <bool MATS>
 __device__ void sample_grad(const Scene& s, const Camera& c, V3 g, uint32_t seed, uint32_t sample,
                             int max_bounces, uint32_t row, uint32_t col, float sx_scale,
                             float sy_scale, float* G) {
@@ -751,7 +964,7 @@ __device__ void sample_grad(const Scene& s, const Camera& c, V3 g, uint32_t seed
   for (int b = 0; b < max_bounces; ++b) {
     states[b] = st;
     Bounce v;
-    if (!bounce(s, st, e, seed, sample, b, row, col, v)) break;
+    if (!bounce<true, true, MATS>(s, st, e, seed, sample, b, row, col, v)) break;
     nb = b + 1;
     if (!(max_component(st.thr) > 0.f)) break;
   }
@@ -760,8 +973,8 @@ __device__ void sample_grad(const Scene& s, const Camera& c, V3 g, uint32_t seed
   for (int b = nb - 1; b >= 0; --b) {
     PathState again = states[b];
     Bounce v;
-    bounce(s, again, e, seed, sample, b, row, col, v);
-    bounce_adj(s, states[b], v, g, d_ro, d_rd, d_thr, G);
+    bounce<true, true, MATS>(s, again, e, seed, sample, b, row, col, v);
+    bounce_adj<MATS>(s, states[b], v, g, d_ro, d_rd, d_thr, G);
   }
   // camera: ro = eye; rd = normalize(right sx + up sy - back),
   // sx = ndc_x tan_half aspect, sy = ndc_y tan_half

@@ -30,8 +30,8 @@
 // the TPU kernel's approximate tile-level early exit.  The scene arrives as
 // the flat float vector (the JAX package's leaf order) plus an int32 table;
 // the kernel switches on category at run time, so one build serves every
-// scene made of the ported categories (all nine shapes; MATTE, MIRROR;
-// UNIFORM_COLOR; AREA over RECTANGLE).  The closest-hit fold keeps t only
+// scene made of the ported categories (all nine shapes; every material and
+// texture; AREA over RECTANGLE).  The closest-hit fold keeps t only
 // per object and computes hit details once for the winner: the design of
 // the TPU's batched fold, whose order the table's rows follow (small
 // categories in scene order, then each batched group), so a tie picks the
@@ -41,8 +41,17 @@
 // with an `any` over its lanes).  Both are exact: a culled cluster cannot
 // change the fold, so the image does not depend on the cull.
 //
-// The device code (intersections, BSDF, one bounce) is path.cuh, shared with
-// K2; its numerics follow the plain torch version operation by operation.
+// The device code (intersections, BSDFs, textures, one bounce) is path.cuh
+// and bsdf.cuh, shared with K2; its numerics follow the plain torch version
+// operation by operation.  Metal and glass switch on the category at run
+// time like the rest; the microfacet code computes only the branch a sample
+// takes (iso or anisotropic, specular or rough, the lobe), where the TPU
+// kernel evaluates both and selects.
+//
+// Early exit (K1-ee, `render_block_pallas(early_exit=True)`) needs no other
+// build: the TPU kernel skips a bounce when every lane of its (8, 256) tile
+// is dead, and a thread here leaves its bounce loop when its own path misses
+// or dies, which skips at least as much and changes no value.
 
 #include "path.cuh"
 
@@ -50,9 +59,9 @@ namespace {
 
 // Three 256-thread blocks per SM: ptxas then keeps K1 at 80 registers (a
 // small spill) where left alone it took 117 and fit two blocks, 16% slower
-// on config 2 (an H100).  Built for the four scene kinds of path.cuh's ALL
-// and CULL; the entry point launches the one the scene needs.
-template <bool ALL, bool CULL>
+// on config 2 (an H100).  Built for the eight scene kinds of path.cuh's ALL,
+// CULL and MATS; the entry point launches the one the scene needs.
+template <bool ALL, bool CULL, bool MATS>
 __global__ void __launch_bounds__(256, 3) render_block_kernel(Scene s, int n_clusters,
                                                            float* __restrict__ out_x,
                                                            float* __restrict__ out_y,
@@ -89,7 +98,7 @@ __global__ void __launch_bounds__(256, 3) render_block_kernel(Scene s, int n_clu
     V3 e = {0.f, 0.f, 0.f};
     for (int b = 0; b < max_bounces; ++b) {
       Bounce v;
-      if (!bounce<ALL, CULL>(s, st, e, seed, sample, b, row, (uint32_t)col, v)) break;  // miss
+      if (!bounce<ALL, CULL, MATS>(s, st, e, seed, sample, b, row, (uint32_t)col, v)) break;  // miss
       if (!(max_component(st.thr) > 0.f)) break;  // dead: adds nothing more
     }
     acc = acc + e;
@@ -110,13 +119,16 @@ extern "C" int sail_max_clusters() { return MAX_CLUSTERS; }
 
 // Plain C entry point (bound with ctypes); `table` is the device int32 scene
 // table (make_scene).  `all_shapes` != 0: the scene holds a shape other than
-// a sphere, a rectangle and a Cornell box.  `n_clusters` > 0 turns the cull
+// a sphere, a rectangle and a Cornell box; `materials` != 0: a material other
+// than matte and mirror or a texture other than a uniform color.
+// `n_clusters` > 0 turns the cull
 // on: the kernel then builds that many cluster bound boxes in shared memory.
 // Launches on `stream`, does not synchronise, and returns the launch's
 // cudaError_t.
 extern "C" int sail_render_block(const float* params, const int* table, int n_obj, int n_plain,
                                  int n_groups, int n_mat, int n_tex, int n_light, int cam,
-                                 int all_shapes, int n_clusters, float* out_x, float* out_y,
+                                 int all_shapes, int materials, int n_clusters, float* out_x,
+                                 float* out_y,
                                  float* out_z, int height, int width, int spp, int seed, int sample0,
                                  int max_bounces, int row0, int image_height, void* stream) {
   if (n_clusters < 0 || n_clusters > MAX_CLUSTERS) return (int)cudaErrorInvalidValue;
@@ -124,10 +136,13 @@ extern "C" int sail_render_block(const float* params, const int* table, int n_ob
   dim3 block(16, 16);
   dim3 grid((width + 15) / 16, (height + 15) / 16);
   size_t smem = (size_t)n_clusters * 6 * sizeof(float);
-  auto kernel = all_shapes ? (n_clusters > 0 ? render_block_kernel<true, true>
-                                             : render_block_kernel<true, false>)
-                           : (n_clusters > 0 ? render_block_kernel<false, true>
-                                             : render_block_kernel<false, false>);
+  using Kernel = decltype(&render_block_kernel<true, true, true>);
+  const Kernel kernels[8] = {
+      render_block_kernel<false, false, false>, render_block_kernel<false, false, true>,
+      render_block_kernel<false, true, false>,  render_block_kernel<false, true, true>,
+      render_block_kernel<true, false, false>,  render_block_kernel<true, false, true>,
+      render_block_kernel<true, true, false>,   render_block_kernel<true, true, true>};
+  Kernel kernel = kernels[(all_shapes ? 4 : 0) + (n_clusters > 0 ? 2 : 0) + (materials ? 1 : 0)];
   kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       s, n_clusters, out_x, out_y, out_z, height, width, spp, (uint32_t)seed, (uint32_t)sample0,
       max_bounces, row0, image_height);

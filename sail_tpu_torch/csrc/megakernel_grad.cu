@@ -15,10 +15,13 @@
 // The array's size is a template parameter: the kernel is built for the caps
 // in CAPS (352, 1,024 and 4,096 floats) and the wrapper runs the smallest
 // that holds the scene, so a few-object scene keeps a small frame and the
-// 256-sphere scene (3,375 parameters) still fits.  The warps' partial sums
-// sit in dynamic shared memory (8 x n_params floats, 108 KB at 3,375, above
-// the 48 KB default only after cudaFuncSetAttribute).  Every shape has its
-// adjoint (adjoint.cuh); K2 folds without the cull, which changes no value.
+// 256-sphere scene (3,375 parameters) still fits.  Each size is built twice,
+// with and without path.cuh's MATS (metal, glass and the uv textures), so
+// scenes of matte, mirror and uniform colors (configs 1-2) keep the smaller
+// adjoint.  The warps' partial sums sit in dynamic shared memory
+// (8 x n_params floats, 108 KB at 3,375, above the 48 KB default only after
+// cudaFuncSetAttribute).  Every shape has its adjoint (adjoint.cuh); K2
+// folds without the cull, which changes no value.
 //
 // Design (adjoint.cuh): one thread per pixel.  Per sample a forward sweep
 // with K1's own code stores each bounce's input state; the reverse sweep
@@ -46,7 +49,7 @@ constexpr int N_CAPS = sizeof(CAPS) / sizeof(CAPS[0]);
 
 // One block per SM asked for: ptxas then gives K2 the 219 registers it needs;
 // left alone it capped the kernel at 128 with spills, 23% slower (an H100).
-template <int CAP>
+template <int CAP, bool MATS>
 __global__ void __launch_bounds__(THREADS, 1)
     render_grad_kernel(Scene s, int n_params, const float* __restrict__ gx,
                        const float* __restrict__ gy, const float* __restrict__ gz,
@@ -62,7 +65,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const Camera c = load_camera(s);
     const float sx_scale = F(2.0 / (double)width), sy_scale = F(2.0 / (double)image_height);
     for (int k = 0; k < spp; ++k) {
-      sample_grad(s, c, g, seed, sample0 + (uint32_t)k, max_bounces, (uint32_t)(row0 + lrow),
+      sample_grad<MATS>(s, c, g, seed, sample0 + (uint32_t)k, max_bounces, (uint32_t)(row0 + lrow),
                   (uint32_t)col, sx_scale, sy_scale, G);
     }
   }
@@ -83,18 +86,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int CAP>
+template <int CAP, bool MATS>
 int launch_grad(dim3 grid, dim3 block, cudaStream_t stream, Scene s, int n_params,
                 const float* gx, const float* gy, const float* gz, float* rows, int height,
                 int width, int spp, uint32_t seed, uint32_t sample0, int max_bounces, int row0,
                 int image_height) {
   size_t smem = (size_t)WARPS * (size_t)n_params * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(render_grad_kernel<CAP>,
+  cudaError_t err = cudaFuncSetAttribute(render_grad_kernel<CAP, MATS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  render_grad_kernel<CAP><<<grid, block, smem, stream>>>(s, n_params, gx, gy, gz, rows, height,
-                                                         width, spp, seed, sample0, max_bounces,
-                                                         row0, image_height);
+  render_grad_kernel<CAP, MATS><<<grid, block, smem, stream>>>(
+      s, n_params, gx, gy, gz, rows, height, width, spp, seed, sample0, max_bounces, row0,
+      image_height);
   return (int)cudaGetLastError();
 }
 
@@ -133,11 +136,12 @@ extern "C" int sail_grad_limits(int* out) {
 // Plain C entry points (bound with ctypes); `table` is the device int32 scene
 // table (path.cuh make_scene).  `rows` holds ceil(W/16) * ceil(H/16) rows of
 // n_params floats, one per thread block in launch order; `cap` is one of
-// CAPS, at least n_params.  Each launches on `stream`, does not synchronise,
-// and returns the launch's cudaError_t.
+// CAPS, at least n_params; `materials` as in sail_render_block.  Each
+// launches on `stream`, does not synchronise, and returns the launch's
+// cudaError_t.
 extern "C" int sail_render_grad_block(const float* params, const int* table, int n_obj,
                                       int n_plain, int n_groups, int n_mat, int n_tex,
-                                      int n_light, int cam, int n_params, int cap,
+                                      int n_light, int cam, int n_params, int cap, int materials,
                                       const float* gx, const float* gy, const float* gz,
                                       float* rows, int height, int width, int spp, int seed,
                                       int sample0, int max_bounces, int row0, int image_height,
@@ -147,20 +151,15 @@ extern "C" int sail_render_grad_block(const float* params, const int* table, int
   dim3 block(BLOCK_X, BLOCK_Y);
   dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y);
   cudaStream_t st = (cudaStream_t)stream;
+#define SAIL_LAUNCH(C, M)                                                                      \
+  launch_grad<C, M>(grid, block, st, s, n_params, gx, gy, gz, rows, height, width, spp,       \
+                    (uint32_t)seed, (uint32_t)sample0, max_bounces, row0, image_height)
   switch (cap) {
-    case CAPS[0]:
-      return launch_grad<CAPS[0]>(grid, block, st, s, n_params, gx, gy, gz, rows, height, width,
-                                  spp, (uint32_t)seed, (uint32_t)sample0, max_bounces, row0,
-                                  image_height);
-    case CAPS[1]:
-      return launch_grad<CAPS[1]>(grid, block, st, s, n_params, gx, gy, gz, rows, height, width,
-                                  spp, (uint32_t)seed, (uint32_t)sample0, max_bounces, row0,
-                                  image_height);
-    case CAPS[2]:
-      return launch_grad<CAPS[2]>(grid, block, st, s, n_params, gx, gy, gz, rows, height, width,
-                                  spp, (uint32_t)seed, (uint32_t)sample0, max_bounces, row0,
-                                  image_height);
+    case CAPS[0]: return materials ? SAIL_LAUNCH(CAPS[0], true) : SAIL_LAUNCH(CAPS[0], false);
+    case CAPS[1]: return materials ? SAIL_LAUNCH(CAPS[1], true) : SAIL_LAUNCH(CAPS[1], false);
+    case CAPS[2]: return materials ? SAIL_LAUNCH(CAPS[2], true) : SAIL_LAUNCH(CAPS[2], false);
   }
+#undef SAIL_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,14 +2,15 @@
 // forward) and K2 (megakernel_grad.cu, the backward).  Vector math, the
 // counter-based RNG, the fastmath polynomials, the scene table, the
 // intersections and bound boxes of the nine shape categories, the closest-hit
-// fold (with its opt-in cluster cull) and the shadow scan, the matte BSDF, and
-// one path bounce (`bounce`) with every intermediate value the adjoint reads
-// (`Bounce`).
+// fold (with its opt-in cluster cull) and the shadow scan, the matte BSDF (the
+// metal and glass samples and the textures are bsdf.cuh), and one path bounce
+// (`bounce`) with every intermediate value the adjoint reads (`Bounce`).
 //
 // Numerics follow the plain torch version (render/integrator.py) operation
 // by operation: build with -fmad=false and without --use_fast_math; rsqrt is
 // 1.0f/sqrtf; atan2/acos are the repo's polynomials (core/fastmath.py);
-// cosf/sinf (the BSDF sample, the hyperboloid's tangent) are full precision.  Constants are written as double literals
+// cosf/sinf/expf/logf (the BSDF samples, the hyperboloid's tangent, the
+// microfacet distributions) are full precision.  Constants are written as double literals
 // cast to float, as Python rounds them.  The RNG runs in uint32_t, which is
 // bit-identical to the JAX package's int32 encoding.  K2's forward sweep runs
 // this same code, so its paths are K1's paths bit for bit.
@@ -26,13 +27,18 @@ constexpr double PI = 3.141592653589793;
 constexpr double INV_PI = 0.3183098861837907;
 constexpr double TWO_PI = 2.0 * PI;
 constexpr double PI_2 = PI / 2.0;
+constexpr double PI_OVER_2 = 1.570796326794896;  // constants.py's literal
 constexpr float EPSILON = F(1e-5);
 constexpr float MAX_DISTANCE = F(1e5);
+constexpr float INF = F(1e5);
 
 // constants.py category ids
 constexpr int CUBE = 1, SPHERE = 2, RECTANGLE = 3, CONE = 4, CYLINDER = 5, DISK = 6,
               HYPERBOLOID = 7, PARABOLOID = 8, CORNELLBOX = 9;
-constexpr int MATTE = 1;  // the other material row is MIRROR
+constexpr int MATTE = 1, MIRROR = 2, METAL = 3, GLASS = 4;
+constexpr int UNIFORM_COLOR = 0, CHECKERBOARD = 5, CHECKERBOARD2 = 7, BILERP = 8, MIXF = 9,
+              SCALE = 10, UVF = 11;
+constexpr int BECKMANN = 1, TROWBRIDGE_REITZ = 2;
 constexpr int TAG_PIXEL_JITTER = 0, TAG_BSDF = 1, TAG_LIGHT_U = 3;
 
 struct V3 {
@@ -143,7 +149,7 @@ struct Scene {
   const float* __restrict__ p;
   const int* __restrict__ obj;    // OBJ_INTS ints per object, in fold order
   const int* __restrict__ group;  // 2 ints per batched group
-  const int* __restrict__ mat;    // 2 ints per material row
+  const int* __restrict__ mat;    // 3 ints per material row
   const int* __restrict__ tex;    // 2 ints per texture row
   const int* __restrict__ light;  // 3 ints per light
   const float* box;               // 6 floats per cluster (the cull's bound boxes), or null
@@ -155,9 +161,10 @@ struct Scene {
 // then each batched group (BATCH_THRESHOLD or more objects of one category)
 // in the order its category first appears, its objects in scene order.  Each
 // row is (category, param offset, material row, texture row, emissive, scene
-// index).  Then 2 ints per batched group (first row, count), 2 per material
-// row (category, offset), 2 per texture row (category, offset) and 3 per
-// light (category, table row of its object, param offset).  Built on the
+// index).  Then 2 ints per batched group (first row, count), 3 per material
+// row (category, offset, microfacet distribution), 2 per texture row
+// (category, offset) and 3 per light (category, table row of its object,
+// param offset).  Built on the
 // host by the C entries; `box` is set by a kernel that culls.
 inline Scene make_scene(const float* params, const int* table, int n_obj, int n_plain,
                         int n_groups, int n_mat, int n_tex, int n_light, int cam) {
@@ -166,7 +173,7 @@ inline Scene make_scene(const float* params, const int* table, int n_obj, int n_
   s.obj = table;
   s.group = s.obj + OBJ_INTS * n_obj;
   s.mat = s.group + 2 * n_groups;
-  s.tex = s.mat + 2 * n_mat;
+  s.tex = s.mat + 3 * n_mat;
   s.light = s.tex + 2 * n_tex;
   s.box = nullptr;
   s.n_obj = n_obj;
@@ -632,8 +639,11 @@ __device__ void cluster_boxes(const Scene& s, float* box, int tid, int n_threads
 //   ALL  - it holds a shape other than SPHERE, RECTANGLE and CORNELLBOX (the
 //          benchmark scenes' three); without it the six other shapes' code
 //          is left out (config 2 measured 6% slower with it, an H100);
-//   CULL - the kernel may cull (the cluster boxes are set when `s.box` is).
-// K2 takes the defaults, which hold for every scene.
+//   CULL - the kernel may cull (the cluster boxes are set when `s.box` is);
+//   MATS - it holds a material other than MATTE and MIRROR or a texture other
+//          than UNIFORM_COLOR; without it the metal, glass and uv texture
+//          code is left out, and configs 1-2 compile the smaller bounce.
+// K2 takes ALL and CULL's defaults, which hold for every scene.
 
 // The t-only test of table row i.  The benchmark scenes' categories come
 // first as plain branches: one switch over all nine measured 4-13% slower on
@@ -773,6 +783,8 @@ __device__ V3 matte_f(float kd, float sigma, V3 sc, V3 wo, V3 wi) {
   return r * (F(INV_PI) * (a + b * max_cos * sin_alpha * tan_beta));
 }
 
+#include "bsdf.cuh"
+
 // ------------------------------------------------------------- camera ----
 // Primary ray direction through pixel (row, col) with jitter (jx, jy).
 struct Camera {
@@ -808,8 +820,9 @@ struct PathState {
 // Every value of one bounce that K2's adjoint reads.  K1 keeps none of it:
 // the fields it does not use are dead code there.
 struct Bounce {
-  int obj, off, eoff, tex_off, moff;
+  int obj, off, eoff, tex_off, moff, tcat, mcat, kind;
   bool emissive, emit_on, is_matte;
+  float u1, u2, u_lobe;  // the BSDF sample's uniforms
   Hit h;
   bool into, dpdu_ok;
   V3 n, a, ss1, ss2, ss, ts, wo, sc;
@@ -829,7 +842,7 @@ struct Bounce {
 // next-event estimation with a shadow ray.  Returns false on a miss (the path
 // adds nothing more); otherwise adds the bounce's radiance to `e` and
 // advances `st`.
-template <bool ALL = true, bool CULL = true>
+template <bool ALL = true, bool CULL = true, bool MATS = true>
 __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uint32_t seed,
                                        uint32_t sample, int bounce_idx, uint32_t row, uint32_t col,
                                        Bounce& v) {
@@ -863,14 +876,16 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
   v.ts = ts;
   v.wo = wo;
 
+  v.tcat = __ldg(s.tex + 2 * tex_row);
   v.tex_off = __ldg(s.tex + 2 * tex_row + 1);
-  V3 sc = h.use_sc ? h.sc : P3(s, v.tex_off);
+  V3 sc = h.use_sc ? h.sc : (MATS ? texture_color(s, v.tcat, v.tex_off, h.u, h.v) : P3(s, v.tex_off));
   v.sc = sc;
 
   float u1, u2, u_lobe;
   uniform3(stream_id(seed, sample, bounce_idx, TAG_BSDF), row, col, u1, u2, u_lobe);
-  int mcat = __ldg(s.mat + 2 * mat_row);
-  v.moff = __ldg(s.mat + 2 * mat_row + 1);
+  int mcat = __ldg(s.mat + 3 * mat_row);
+  v.mcat = mcat;
+  v.moff = __ldg(s.mat + 3 * mat_row + 1);
   v.is_matte = mcat == MATTE;
   V3 wi, weight;
   if (v.is_matte) {
@@ -884,9 +899,22 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
     V3 f = matte_f(v.kd, v.sigma, sc, wo, wi);
     v.cw = pdf > 0.f ? fabsf(wi.z) / fmaxf(pdf, F(1e-20)) : 0.f;
     weight = f * v.cw;
-  } else {  // MIRROR
+  } else if (!MATS || mcat == MIRROR) {
     wi = {-wo.x, -wo.y, wo.z};
     weight = sc * P(s, v.moff);
+  } else {  // METAL, GLASS
+    v.kind = __ldg(s.mat + 3 * mat_row + 2);
+    v.u1 = u1;
+    v.u2 = u2;
+    v.u_lobe = u_lobe;
+    float mp[MAX_MAT_PARAMS];
+    const int n = material_params(mcat);
+#pragma unroll
+    for (int k = 0; k < MAX_MAT_PARAMS; ++k) mp[k] = k < n ? P(s, v.moff + k) : 0.f;
+    Vt<float> wi_t, w_t;
+    sample_material_t<float>(mcat, v.kind, mp, to_vt(sc), u1, u2, u_lobe, to_vt(wo), v.into, wi_t, w_t);
+    wi = to_v3(wi_t);
+    weight = to_v3(w_t);
   }
   v.wi = wi;
   v.weight_raw = weight;

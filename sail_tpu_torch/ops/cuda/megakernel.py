@@ -16,8 +16,9 @@ Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; it never falls back from one to the other.
 `render_block.launches`, `render_grad_block.launches` (K2, launched by
 `render_grad_rows`) and `reduce_grad_rows.launches` count kernel launches.
-K1 is built for four scene kinds (`render_block_kernel<ALL, CULL>`); the
-table says which a scene is.
+K1 is built for eight scene kinds (`render_block_kernel<ALL, CULL, MATS>`)
+and K2 for two (`render_grad_kernel<CAP, MATS>`); the table says which a
+scene is.
 
 `render_image_fast` / `render_tile_fast` are the JAX package's
 `custom_vjp`s (`megakernel.py:497-569`) as `torch.autograd.Function`s:
@@ -58,11 +59,15 @@ class Table(NamedTuple):
     n_groups: int      # batched groups
     n_clusters: int    # cull clusters over all groups
     all_shapes: bool   # a shape other than the benchmark scenes' three
+    materials: bool    # a material beyond matte and mirror, or a texture
+    #                    beyond a uniform color
 
 
 # The shapes K1's smaller build takes (path.cuh's `ALL`): those of the
-# benchmark scenes.
+# benchmark scenes.  The materials and textures the kernels' smaller build
+# takes (path.cuh's `MATS`): those of configs 1 and 2.
 _FEW_SHAPES = frozenset((C.SPHERE, C.RECTANGLE, C.CORNELLBOX))
+_FEW_MATERIALS = frozenset((C.MATTE, C.MIRROR))
 # The fewest cull clusters at which `render_block` culls by itself: the
 # many-object sweep (chip_smoke.py phase 5, 512² x 8 spp x 3 bounces, an
 # H100) measured the cull 3-11% slower on 16 spheres (2 clusters), 5%
@@ -91,8 +96,9 @@ def scene_table(static: SceneStatic) -> Table:
     for _, idxs in batched:
         table += [first, len(idxs)]
         first += len(idxs)
-    for cat, o in zip(static.material_categories, off.materials):
-        table += [cat, o]
+    for cat, o, var in zip(static.material_categories, off.materials,
+                           static.material_variants):
+        table += [cat, o, var or C.TROWBRIDGE_REITZ]
     for cat, o in zip(static.texture_categories, off.textures):
         table += [cat, o]
     for cat, obj, o in zip(static.light_categories, static.area_light_objects,
@@ -101,7 +107,9 @@ def scene_table(static: SceneStatic) -> Table:
     n_clusters = sum(-(-len(idxs) // isect.CLUSTER) for _, idxs in batched)
     return Table(tuple(table), off, order, len(plain), len(batched),
                  n_clusters,
-                 not _FEW_SHAPES.issuperset(static.object_categories))
+                 not _FEW_SHAPES.issuperset(static.object_categories),
+                 not (_FEW_MATERIALS.issuperset(static.material_categories)
+                      and set(static.texture_categories) <= {C.UNIFORM_COLOR}))
 
 
 @functools.lru_cache(maxsize=64)
@@ -134,13 +142,14 @@ def _check_block(params, static, height, width, spp, max_bounces, row0,
 def render_block_plain(params: torch.Tensor, static: SceneStatic, height: int,
                        width: int, spp: int, seed, sample0,
                        max_bounces: int = C.MAX_BOUNCES, row0: int = 0,
-                       image_height: int = None, cull: bool = False) -> Vec3:
+                       image_height: int = None, cull: bool = False,
+                       early_exit: bool = False) -> Vec3:
     """The plain PyTorch version of K1 on any device: spp-SUM of radiance
     of an H×W block whose first row is global row `row0`."""
     return integrator.render_sum(unflatten(params, static), static, height,
                                  width, spp, seed, sample0, max_bounces,
                                  row0=row0, image_height=image_height,
-                                 cull=cull)
+                                 cull=cull, early_exit=early_exit)
 
 
 def _bind(source: str, name: str, argtypes):
@@ -152,12 +161,15 @@ def _bind(source: str, name: str, argtypes):
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# The C entries' argument types, in their order (csrc/*.cu `extern "C"`).
+K1_ARGTYPES = [_PTR] * 2 + [_INT] * 10 + [_PTR] * 3 + [_INT] * 8 + [_PTR]
+K2_ARGTYPES = [_PTR] * 2 + [_INT] * 10 + [_PTR] * 4 + [_INT] * 8 + [_PTR]
+REDUCE_ARGTYPES = [_PTR, _INT, _INT, _PTR, _PTR]
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    fn = _bind(_SOURCE, "sail_render_block",
-               [_PTR] * 2 + [_INT] * 9 + [_PTR] * 3 + [_INT] * 8 + [_PTR])
+    fn = _bind(_SOURCE, "sail_render_block", K1_ARGTYPES)
     return fn, build.load(_SOURCE).sail_max_clusters()
 
 
@@ -189,7 +201,8 @@ def cull_clusters(static: SceneStatic, cull: bool = None,
 def render_block(params: torch.Tensor, static: SceneStatic, height: int,
                  width: int, spp: int, seed, sample0,
                  max_bounces: int = C.MAX_BOUNCES, row0: int = 0,
-                 image_height: int = None, cull: bool = None) -> Vec3:
+                 image_height: int = None, cull: bool = None,
+                 early_exit: bool = False) -> Vec3:
     """Forward render of an H×W block: the SUM of `spp` samples (divide by
     spp for the mean), as a Vec3 of (H, W) float32 tensors on params' device.
 
@@ -200,7 +213,12 @@ def render_block(params: torch.Tensor, static: SceneStatic, height: int,
     (`render_block_pallas(cull=)`); the image is the same.  By default
     (None) the kernel culls where the scene has AUTO_CULL_CLUSTERS clusters
     or more (and no more than the kernel takes), and the plain version (the
-    CPU) does not cull."""
+    CPU) does not cull.  `early_exit` (K1-ee, `render_block_pallas(
+    early_exit=True)`): the plain version skips the bounces no ray of its
+    batch needs; K1 needs no other build for it, as each thread already
+    leaves its bounce loop when its path misses or dies, a finer form of
+    the TPU kernel's tile-level skip.  Either way the image is the same
+    bit for bit."""
     image_height = height if image_height is None else image_height
     if params.requires_grad and torch.is_grad_enabled():
         raise TypeError(
@@ -212,7 +230,7 @@ def render_block(params: torch.Tensor, static: SceneStatic, height: int,
     if params.device.type == "cpu":
         return render_block_plain(params, static, height, width, spp, seed,
                                   sample0, max_bounces, row0, image_height,
-                                  bool(cull))
+                                  bool(cull), early_exit)
 
     dev = params.device
     table_t = _device_table(static, dev)
@@ -223,7 +241,8 @@ def render_block(params: torch.Tensor, static: SceneStatic, height: int,
     with torch.cuda.device(dev):   # the C launch goes to the current device
         err = fn(
             params.data_ptr(), table_t.data_ptr(), *_counts(static),
-            off.camera, int(table.all_shapes), n_clusters, out[0].data_ptr(),
+            off.camera, int(table.all_shapes), int(table.materials),
+            n_clusters, out[0].data_ptr(),
             out[1].data_ptr(), out[2].data_ptr(), height, width, spp,
             _int32(seed), _int32(sample0), max_bounces, row0, image_height,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -279,10 +298,8 @@ def _grad_entries():
     if caps != GRAD_CAPS:
         raise RuntimeError(f"K2 was built for caps {caps}, the wrapper "
                            f"expects {GRAD_CAPS}")
-    return (_bind(_GRAD_SOURCE, "sail_render_grad_block",
-                  [_PTR] * 2 + [_INT] * 9 + [_PTR] * 4 + [_INT] * 8 + [_PTR]),
-            _bind(_GRAD_SOURCE, "sail_reduce_grad_rows",
-                  [_PTR, _INT, _INT, _PTR, _PTR]),
+    return (_bind(_GRAD_SOURCE, "sail_render_grad_block", K2_ARGTYPES),
+            _bind(_GRAD_SOURCE, "sail_reduce_grad_rows", REDUCE_ARGTYPES),
             tuple(limits[:3]))
 
 
@@ -375,7 +392,8 @@ def render_grad_rows(params: torch.Tensor, static: SceneStatic, g: Vec3,
     with torch.cuda.device(dev):
         err = grad_fn(
             params.data_ptr(), _device_table(static, dev).data_ptr(),
-            *_counts(static), off.camera, off.size, cap, g.x.data_ptr(),
+            *_counts(static), off.camera, off.size, cap,
+            int(scene_table(static).materials), g.x.data_ptr(),
             g.y.data_ptr(), g.z.data_ptr(), rows.data_ptr(), height, width,
             spp, _int32(seed), _int32(sample0), max_bounces, row0,
             image_height, torch.cuda.current_stream(dev).cuda_stream)

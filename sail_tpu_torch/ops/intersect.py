@@ -88,6 +88,14 @@ def _phi_of(x, y):
     return torch.where(phi < 0.0, phi + TWO_PI, phi)
 
 
+def _over(x, c: float):
+    """x / c as a true division on every device.  On a CUDA tensor torch
+    computes `x / <Python number>` as x · (1/c), which differs from the
+    kernels' (and JAX's) x / c in the last bit; a 0-d divisor on x's
+    device is divided by."""
+    return x / vm.full((), c, x)
+
+
 def _full(shape, v):
     """A 0-d (or per-ray) parameter broadcast to the rays' shape."""
     return torch.broadcast_to(v, shape)
@@ -115,9 +123,9 @@ def sphere_intersect(ro: Vec3, rd: Vec3, s: SphereP, detail: bool = True) -> Hit
     # Avoid the azimuthal singularity on the pole axis.
     hx = torch.where((h.x == 0.0) & (h.y == 0.0), 1e-5 * s.radius, h.x)
     h = Vec3(hx, h.y, h.z)
-    u = _phi_of(h.x, h.y) / TWO_PI
+    u = _over(_phi_of(h.x, h.y), TWO_PI)
     cos_t = vm.clip(h.z / s.radius, -1.0 + 1e-6, 1.0 - 1e-6)
-    v = fastmath.acos(cos_t) / C.PI
+    v = _over(fastmath.acos(cos_t), C.PI)
 
     dpdu = Vec3(-TWO_PI * h.y, TWO_PI * h.x, vm.full(shape, 0.0, t))
     ng = h * (1.0 / s.radius)
@@ -260,7 +268,7 @@ def _frustum_detail(valid, t, o, d, f: FrustumP, dpdv_xy, shape) -> Hit:
     """Shared tail of the cone and cylinder hits: (u, v) = (phi/2pi, z/h),
     ng = normalize(dpdu x dpdv)."""
     h = o + d * t
-    u = _phi_of(h.x, h.y) / TWO_PI
+    u = _over(_phi_of(h.x, h.y), TWO_PI)
     v = h.z / f.h
     zero = torch.zeros(shape, dtype=t.dtype, device=t.device)
     dpdu = Vec3(-TWO_PI * h.y, TWO_PI * h.x, zero)
@@ -325,7 +333,7 @@ def disk_intersect(ro: Vec3, rd: Vec3, dk: DiskP, detail: bool = True) -> Hit:
     if not detail:
         return _finish_t(valid, t, shape)
 
-    u = _phi_of(h.x, h.y) / TWO_PI
+    u = _over(_phi_of(h.x, h.y), TWO_PI)
     r_hit = torch.sqrt(dist2)
     v = 1.0 - _safe_div(r_hit - dk.inner_r, dk.r - dk.inner_r)
     zero = torch.zeros(shape, dtype=t.dtype, device=t.device)
@@ -358,7 +366,7 @@ def hyperboloid_intersect(ro: Vec3, rd: Vec3, hy: HyperboloidP,
     v = _safe_div(h.z - hy.p1.z, hy.p2.z - hy.p1.z)
     pr = vm.lerp(hy.p1.broadcast_to(shape), hy.p2.broadcast_to(shape), v)
     phi = _phi_of(pr.x * h.x + pr.y * h.y, pr.x * h.y - h.x * pr.y)
-    u = phi / TWO_PI
+    u = _over(phi, TWO_PI)
     sin_p = torch.sin(phi)
     cos_p = torch.cos(phi)
     zero = torch.zeros(shape, dtype=t.dtype, device=t.device)
@@ -389,7 +397,7 @@ def paraboloid_intersect(ro: Vec3, rd: Vec3, pb: ParaboloidP,
         return _finish_t(valid, t, shape)
 
     h = o + d * t
-    u = _phi_of(h.x, h.y) / TWO_PI
+    u = _over(_phi_of(h.x, h.y), TWO_PI)
     v = _safe_div(h.z - zmin, zmax - zmin)
     zero = torch.zeros(shape, dtype=t.dtype, device=t.device)
     dpdu = Vec3(-TWO_PI * h.y, TWO_PI * h.x, zero)

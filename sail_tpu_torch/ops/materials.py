@@ -1,5 +1,7 @@
 """Per-ray material dispatch over the scene's material rows (port of
-`sail_tpu/ops/materials.py` for MATTE and MIRROR rows)."""
+`sail_tpu/ops/materials.py`): every row's sample is computed and selected
+by the ray's row mask; a metal or glass row samples the distribution its
+variant names (TROWBRIDGE_REITZ where the variant is 0)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -22,20 +24,23 @@ class MaterialSample(NamedTuple):
 
 def sample_material(materials: tuple, static, mat_row, sc: Vec3,
                     u1, u2, u_lobe, wo: Vec3, into) -> MaterialSample:
-    """`u_lobe` and `into` serve the glass rows of the JAX version; the
-    slice's MATTE and MIRROR rows do not read them."""
     shape = wo.shape
     zero = vm.zeros_vec(shape, wo.z)
     izero = torch.zeros(shape, dtype=torch.int32, device=wo.z.device)
     out = MaterialSample(zero, zero, zero, izero, izero)
     for row, (cat, p) in enumerate(zip(static.material_categories, materials)):
         mask = mat_row == row
+        kind = static.material_variants[row] or C.TROWBRIDGE_REITZ
         if cat == C.MATTE:
             s = bsdf.matte_sample(p.kd, p.sigma, sc, u1, u2, wo)
         elif cat == C.MIRROR:
             s = bsdf.mirror_sample(p.kr, sc, wo)
+        elif cat == C.METAL:
+            s = bsdf.metal_sample(p, sc, u1, u2, wo, kind=kind)
+        elif cat == C.GLASS:
+            s = bsdf.glass_sample(p, sc, u1, u2, u_lobe, wo, into, kind=kind)
         else:  # refused earlier by scene.check_supported
-            raise NotImplementedError(f"material category {cat}")
+            raise ValueError(f"unknown material category {cat}")
         out = MaterialSample(
             vm.where(mask, s.wi, out.wi),
             vm.where(mask, s.weight, out.weight),

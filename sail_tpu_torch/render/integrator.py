@@ -11,6 +11,12 @@ bounce's emission pickup is skipped where the previous bounce did NEE; BSDF
 weights are clipped to [0, 1]; RNG is the counter-based per-pixel hash, so
 every pixel draws the JAX package's streams.
 
+`early_exit` (default off) skips work no ray of the batch needs, with the
+JAX package's semantics: bounce 0 always intersects, and its shading is
+skipped when no ray hit; a later bounce is skipped when every ray is dead.
+Dead rays add exactly +0, so the image is the masked loop's bit for bit.
+`rand_override` and `clamp_weight` serve the numpy oracle's parity test.
+
 `cull` (default off) lets the closest-hit and shadow scans skip the clusters
 of a batched object group whose bound box a ray cannot reach
 (`ops/intersect.py`); it never changes an image.  `tally` (a dict) collects
@@ -54,14 +60,24 @@ class _PathState(NamedTuple):
 
 
 def _bounce_step(scene, state: _PathState, noise: PixelNoise, *, static,
-                 bounce: int, cull: bool = False,
-                 tally: dict = None) -> _PathState:
-    """One bounce: intersect → shade → NEE → continue."""
+                 bounce: int, clamp_weight: bool = True, rand_override=None,
+                 cull: bool = False, tally: dict = None,
+                 skip_dead_shade: bool = False) -> _PathState:
+    """One bounce: intersect → shade → NEE → continue.  With
+    `skip_dead_shade`, the shading is skipped when no ray hit (the rays
+    that missed add nothing and are dead after it)."""
     hit = isect.intersect_scene(scene.objects, static, state.ro, state.rd,
                                 cull=cull, tally=tally)
     alive = state.alive & hit.valid
-    out = _bounce_shade(scene, state, hit, alive, noise, static=static,
-                        bounce=bounce, cull=cull, tally=tally)
+    if skip_dead_shade and not bool(alive.any()):
+        # every ray is dead now; skip_emission (all False) is the tally's
+        # record that no ray sampled a light
+        out = state._replace(alive=alive, skip_emission=alive)
+    else:
+        out = _bounce_shade(scene, state, hit, alive, noise, static=static,
+                            bounce=bounce, clamp_weight=clamp_weight,
+                            rand_override=rand_override, cull=cull,
+                            tally=tally)
     if tally is not None:   # the scans' tests move into the bounce's record
         tally.setdefault("bounces", []).append(dict(
             scan=tally.pop("scan"), shadow=tally.pop("shadow", None),
@@ -72,7 +88,8 @@ def _bounce_step(scene, state: _PathState, noise: PixelNoise, *, static,
 
 
 def _bounce_shade(scene, state: _PathState, hit, alive, noise: PixelNoise,
-                  *, static, bounce: int, cull: bool = False,
+                  *, static, bounce: int, clamp_weight: bool = True,
+                  rand_override=None, cull: bool = False,
                   tally: dict = None) -> _PathState:
     """Shade + NEE + path continuation for an already-intersected bounce."""
     rd = state.rd
@@ -91,11 +108,15 @@ def _bounce_shade(scene, state: _PathState, hit, alive, noise: PixelNoise,
     sc = tex_ops.surface_color(scene.textures, static, hit.tex_row, hit.p,
                                hit.u, hit.v, hit.sc_override, hit.use_override)
 
-    u1, u2, u_lobe = noise.uniform3(bounce, rng.TAG_BSDF)
+    if rand_override is not None:
+        rb = rand_override[bounce]
+        u1, u2, u_lobe = rb["u1"], rb["u2"], rb["u_lobe"]
+    else:
+        u1, u2, u_lobe = noise.uniform3(bounce, rng.TAG_BSDF)
     ms = mat_ops.sample_material(scene.materials, static, hit.mat_row, sc,
                                  u1, u2, u_lobe, wo, hit.into)
 
-    weight = ms.weight.clip(0.0, 1.0)
+    weight = ms.weight.clip(0.0, 1.0) if clamp_weight else ms.weight
 
     # Emission pickup; skipped if the previous bounce's NEE already
     # accounted for direct light onto this path vertex.
@@ -104,8 +125,13 @@ def _bounce_shade(scene, state: _PathState, hit, alive, noise: PixelNoise,
 
     did_nee = torch.zeros(shape, dtype=torch.bool, device=rd.x.device)
     if n_lights > 0:
-        lu1, lu2, lr = noise.uniform3(bounce, rng.TAG_LIGHT_U)
-        lidx = torch.clamp((lr * n_lights).to(torch.int32), max=n_lights - 1)
+        if rand_override is not None:
+            rb = rand_override[bounce]
+            lu1, lu2, lidx = rb["lu1"], rb["lu2"], rb["lidx"]
+        else:
+            lu1, lu2, lr = noise.uniform3(bounce, rng.TAG_LIGHT_U)
+            lidx = torch.clamp((lr * n_lights).to(torch.int32),
+                               max=n_lights - 1)
         nee_mask = (ms.is_matte > 0) & (hit.emissive == 0) & alive
         direct, wi_light = lights_ops.sample_direct(
             scene.objects, scene.lights, static, hit.p, hit.n, lu1, lu2, lidx,
@@ -127,24 +153,57 @@ def _bounce_shade(scene, state: _PathState, hit, alive, noise: PixelNoise,
     return _PathState(ro, wi_world, e, throughput, alive, did_nee)
 
 
-def trace_rays(scene, static, ro: Vec3, rd: Vec3, noise: PixelNoise,
-               max_bounces: int = C.MAX_BOUNCES, cull: bool = False,
-               tally: dict = None) -> Vec3:
-    """Radiance of a batch of rays traced through the packed scene (`scene`
-    a PackedScene view, `static` a SceneStatic), every bounce masked."""
+def _initial_state(ro: Vec3, rd: Vec3) -> _PathState:
     shape = torch.broadcast_shapes(ro.shape, rd.shape)
-    ro = ro.broadcast_to(shape)
-    rd = rd.broadcast_to(shape)
     black = vm.zeros_vec(shape, rd.x)
     one = vm.full(shape, 1.0, rd.x)
     dev = rd.x.device
-    state = _PathState(ro, rd, black, Vec3(one, one, one),
-                       torch.ones(shape, dtype=torch.bool, device=dev),
-                       torch.zeros(shape, dtype=torch.bool, device=dev))
+    return _PathState(ro.broadcast_to(shape), rd.broadcast_to(shape), black,
+                      Vec3(one, one, one),
+                      torch.ones(shape, dtype=torch.bool, device=dev),
+                      torch.zeros(shape, dtype=torch.bool, device=dev))
+
+
+def trace_rays(scene, static, ro: Vec3, rd: Vec3, noise: PixelNoise,
+               max_bounces: int = C.MAX_BOUNCES, clamp_weight: bool = True,
+               rand_override=None, early_exit: bool = False,
+               cull: bool = False, tally: dict = None) -> Vec3:
+    """Radiance of a batch of rays traced through the packed scene (`scene`
+    a PackedScene view, `static` a SceneStatic), every bounce masked.
+
+    `rand_override`: per bounce a dict of u1, u2, u_lobe, lu1, lu2, lidx
+    fields that replace the RNG's (the oracle's parity test);
+    `clamp_weight=False` leaves the BSDF weights unclipped, as the oracle
+    does.  `early_exit`: see the module's docstring."""
+    state = _initial_state(ro, rd)
+    for bounce in range(max_bounces):
+        if early_exit and bounce > 0 and not bool(state.alive.any()):
+            continue      # every ray is dead: the bounce would add +0
+        state = _bounce_step(scene, state, noise, static=static,
+                             bounce=bounce, clamp_weight=clamp_weight,
+                             rand_override=rand_override, cull=cull,
+                             tally=tally,
+                             skip_dead_shade=early_exit and bounce == 0)
+    return state.e
+
+
+def alive_fractions(scene, static, ro: Vec3, rd: Vec3, noise: PixelNoise,
+                    max_bounces: int = C.MAX_BOUNCES,
+                    weak_threshold: float = 1e-2):
+    """Per-bounce occupancy: (alive, weak) tensors of shape (max_bounces,),
+    alive[b] the fraction of rays still alive after bounce b and weak[b]
+    the fraction alive with a throughput max-component below
+    `weak_threshold` (what Russian roulette would also reclaim)."""
+    state = _initial_state(ro, rd)
+    alive, weak = [], []
     for bounce in range(max_bounces):
         state = _bounce_step(scene, state, noise, static=static,
-                             bounce=bounce, cull=cull, tally=tally)
-    return state.e
+                             bounce=bounce)
+        alive.append(state.alive.to(rd.x.dtype).mean())
+        tp = state.throughput.max_component()
+        weak.append((state.alive & (tp < weak_threshold)).to(rd.x.dtype)
+                    .mean())
+    return torch.stack(alive), torch.stack(weak)
 
 
 def pixel_grid(height: int, width: int, row0: int, device):
@@ -158,7 +217,8 @@ def pixel_grid(height: int, width: int, row0: int, device):
 def render_sample(scene, static, height: int, width: int, seed, sample_idx,
                   max_bounces: int = C.MAX_BOUNCES, row0: int = 0,
                   image_height: int = None, cull: bool = False,
-                  tally: dict = None, n_samples: int = None) -> Vec3:
+                  tally: dict = None, n_samples: int = None,
+                  early_exit: bool = False) -> Vec3:
     """Radiance of one 1-spp pass over an H×W block whose first row is
     global row `row0` of an image `image_height` rows tall (default
     `height`).  With `n_samples`, the passes of samples sample_idx,
@@ -176,12 +236,13 @@ def render_sample(scene, static, height: int, width: int, seed, sample_idx,
     ro, rd = rays_for_pixels(scene.camera, ii.to(like.dtype),
                              jj.to(like.dtype), image_height, width, jx, jy)
     return trace_rays(scene, static, ro, rd, noise, max_bounces, cull=cull,
-                      tally=tally)
+                      tally=tally, early_exit=early_exit)
 
 
 def render_sum(scene, static, height: int, width: int, spp: int, seed,
                sample0, max_bounces: int = C.MAX_BOUNCES, row0: int = 0,
-               image_height: int = None, cull: bool = False) -> Vec3:
+               image_height: int = None, cull: bool = False,
+               early_exit: bool = False) -> Vec3:
     """SUM of `spp` passes (samples sample0, sample0+1, ...), added in
     sample order: the plain version of the K1 megakernel.  Samples are
     traced together, up to RAYS_PER_PASS rays at once.
@@ -199,7 +260,7 @@ def render_sum(scene, static, height: int, width: int, spp: int, seed,
         one = functools.partial(render_sample, scene, static, height, width,
                                 seed, sample0 + s, max_bounces, row0=row0,
                                 image_height=image_height, cull=cull,
-                                n_samples=n)
+                                n_samples=n, early_exit=early_exit)
         if grad:
             one = functools.partial(checkpoint, one, use_reentrant=False)
         rad = one()

@@ -8,9 +8,12 @@ all `spp` samples; on the CPU it is the plain torch version.  The Renderer
 runs on the card unless it is given `device="cpu"`; there is no fallback
 from the card or the kernel to the CPU or the plain path.
 
+`early_exit=True` (K1-ee) skips the bounces no ray needs, for open scenes
+whose escaped rays die together; the image is the same bit for bit.
+
 Not ported yet: the G-buffer and the filters that read it (`normal`,
-`position`, `wavelet`), the windowed filters, `early_exit`, the selection
-overlay and checkpoint/resume (ROADMAP.md queue 1: display and runtime).
+`position`, `wavelet`), the windowed filters, the selection overlay and
+checkpoint/resume (ROADMAP.md queue 1: display and runtime).
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from ..scene.scene import Scene
 
 class Renderer:
     def __init__(self, width: int = 512, height: int = 512, seed: int = 0,
-                 max_bounces: int = C.MAX_BOUNCES, device=None):
+                 max_bounces: int = C.MAX_BOUNCES, device=None,
+                 early_exit: bool = False):
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -40,10 +44,20 @@ class Renderer:
         self.max_bounces = max_bounces
         self.seed = seed
         self.device = device
+        self.early_exit = early_exit
         self._params: Optional[torch.Tensor] = None
         self._static = None
         self._accum: Optional[Vec3] = None
         self.sample_count = 0
+
+    @property
+    def early_exit(self) -> bool:
+        return self._early_exit
+
+    @early_exit.setter
+    def early_exit(self, value: bool):
+        # read at every render call, so a change takes effect at the next
+        self._early_exit = bool(value)
 
     def update(self, scene: Scene):
         """(Re)pack the scene; resets the accumulation."""
@@ -74,7 +88,7 @@ class Renderer:
             self.reset()
         acc = render_block(self._params, self._static, self.height,
                            self.width, spp, self.seed, self.sample_count,
-                           self.max_bounces)
+                           self.max_bounces, early_exit=self.early_exit)
         self._accum = self._accum + acc
         self.sample_count += spp
         scene.sample_count = self.sample_count

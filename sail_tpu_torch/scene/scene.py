@@ -7,11 +7,10 @@ hashable `SceneStatic` with the same fields and values as the JAX one.  The
 flat vector is the CUDA megakernel's ABI; `unflatten` views it as the
 structured `PackedScene` the plain torch ops read.
 
-The port covers every shape category, in any number, and so far the
-materials MATTE and MIRROR, the texture UNIFORM_COLOR and AREA lights over a
-RECTANGLE.  `check_supported` raises `NotImplementedError` naming the
-ROADMAP.md item for anything else, so an unported category never renders a
-wrong image.
+The port covers every shape category, in any number, every material and
+texture category, and so far AREA lights over a RECTANGLE.
+`check_supported` raises `NotImplementedError` naming the ROADMAP.md item
+for any other light, so an unported category never renders a wrong image.
 """
 from __future__ import annotations
 
@@ -69,23 +68,21 @@ def check_supported(static: SceneStatic) -> None:
             raise ValueError(f"unknown shape category {cat}")
     for cat in static.material_categories:
         if cat not in material.LAYOUTS:
-            raise NotImplementedError(
-                f"material category {cat}: "
-                + _TODO.format("remaining materials"))
+            raise ValueError(f"unknown material category {cat}")
     for cat in static.texture_categories:
         if cat not in texture.LAYOUTS:
-            raise NotImplementedError(
-                f"texture category {cat}: "
-                + _TODO.format("remaining textures"))
+            raise ValueError(f"unknown texture category {cat}")
     for cat, obj in zip(static.light_categories, static.area_light_objects):
         if cat not in light.LAYOUTS:
             raise NotImplementedError(
-                f"light category {cat}: " + _TODO.format("remaining lights"))
+                f"light category {cat}: "
+                + _TODO.format("item 3b, POINT and SPOT lights"))
         if static.object_categories[obj] != C.RECTANGLE:
             raise NotImplementedError(
                 "area light over a "
                 f"{C.SHAPE_NAMES[static.object_categories[obj]]}: "
-                + _TODO.format("area sampling of the other emitter shapes"))
+                + _TODO.format("item 3b, area sampling of the other emitter "
+                               "shapes"))
 
 
 class Offsets(NamedTuple):

@@ -1,14 +1,16 @@
-"""The benchmark scenes the port renders (BASELINE.md configs 1 and 2;
-`sail_tpu/scenes.py` holds all of them), the many-object scene of
-`tools/many_object_bench.py`, and check scenes for the shapes and the
-batched fold.  Cameras look from -z toward +z."""
+"""The benchmark scenes the port renders (BASELINE.md configs 1, 2 and 3,
+and config 3's open twin; `sail_tpu/scenes.py` holds all of them), the
+many-object scene of `tools/many_object_bench.py`, and check scenes for the
+shapes, the batched fold and the materials and textures.  Cameras look from
+-z toward +z."""
 from __future__ import annotations
 
 import math
 
-from . import (AreaLight, Camera, Cone, Cornellbox, Cube, Cylinder, Disk,
-               Hyperboloid, Matte, Mirror, Paraboloid, Rectangle, Scene,
-               Sphere, UniformColor)
+from . import (UV, AreaLight, Bilerp, Camera, Checkerboard, Checkerboard2,
+               Cone, Cornellbox, Cube, Cylinder, Disk, Glass, Hyperboloid,
+               Matte, Metal, Mirror, Mix, Paraboloid, Rectangle, ScaleT,
+               Scene, Sphere, UniformColor)
 
 
 def cornell_matte(light_emission=(5.0, 5.0, 5.0)) -> Scene:
@@ -33,6 +35,77 @@ def cornell_mirror(light_emission=(5.0, 5.0, 5.0)) -> Scene:
     scene.add(AreaLight(
         Rectangle((-0.3, 0.98, -0.3), (0.3, 0.98, 0.3), Matte()),
         light_emission))
+    return scene
+
+
+def _material_demo_objects(scene: Scene) -> Scene:
+    floor_tex = Checkerboard2((1.0, 1.0, 1.0), (0.2, 0.2, 0.2), 0.25)
+    scene.add(Rectangle((-1.5, -0.99, -1.5), (1.5, -0.99, 1.5),
+                        Matte(), floor_tex))
+    scene.add(Sphere((-0.9, -0.65, 0.0), 0.33, Metal(roughness=0.1)))
+    scene.add(Sphere((-0.3, -0.65, 0.0), 0.33, Mirror()))
+    scene.add(Sphere((0.3, -0.65, 0.0), 0.33, Glass(eta=1.5)))
+    scene.add(Sphere((0.9, -0.65, 0.0), 0.33, Matte(kd=0.9, sigma=20.0)))
+    scene.add(AreaLight(
+        Rectangle((-0.5, 1.48, -0.5), (0.5, 1.48, 0.5), Matte()),
+        (6.0, 6.0, 6.0)))
+    return scene
+
+
+def material_demo() -> Scene:
+    """Config 3: metal/mirror/glass/matte spheres over a checkerboard."""
+    scene = Scene()
+    scene.add(Camera((0.0, 0.3, -2.8), (0.0, 0.0, 0.0)))
+    scene.add(Cornellbox((-1.5, -1.0, -1.5), (1.5, 1.5, 1.5)))
+    return _material_demo_objects(scene)
+
+
+def material_demo_open() -> Scene:
+    """Config 3 without its Cornell box: rays escape into the sky and die
+    there together, the scene `early_exit` is for."""
+    scene = Scene()
+    scene.add(Camera((0.0, 0.3, -2.8), (0.0, 0.0, 0.0)))
+    return _material_demo_objects(scene)
+
+
+def material_check() -> Scene:
+    """Not a benchmark config: what config 3 lacks — Beckmann and
+    anisotropic GGX metal, rough glass of both distributions (one
+    anisotropic), and each uv texture, several on shapes whose u and v then
+    carry gradient (Bilerp, UV) — in a Cornell box under a rectangle
+    light."""
+    scene = Scene()
+    scene.add(Camera((0.0, 0.3, -2.8), (0.0, 0.0, 0.0)))
+    scene.add(Cornellbox((-1.5, -1.0, -1.5), (1.5, 1.5, 1.5)))
+    scene.add(Rectangle((-1.5, -0.99, -1.5), (1.5, -0.99, 1.5),
+                        Matte(kd=0.9),
+                        Checkerboard2((0.9, 0.9, 0.8), (0.3, 0.2, 0.2), 0.3)))
+    scene.add(Rectangle((-1.4, -0.9, 1.45), (1.4, 1.2, 1.45), Matte(), UV()))
+    scene.add(Sphere((-0.95, -0.6, -0.1), 0.35,
+                     Metal(roughness=0.25, distribution="beckmann"),
+                     Bilerp((1.0, 0.3, 0.2), (0.2, 1.0, 0.3),
+                            (0.3, 0.2, 1.0), (0.9, 0.9, 0.2))))
+    scene.add(Sphere((-0.2, -0.6, 0.1), 0.35,
+                     Metal(uroughness=0.05, vroughness=0.35), UV()))
+    scene.add(Sphere((0.55, -0.6, -0.2), 0.35,
+                     Glass(eta=1.5, uroughness=0.15, vroughness=0.15)))
+    scene.add(Cylinder((1.05, -1.0, 0.6), 0.8, 0.25,
+                       Glass(eta=1.33, uroughness=0.1, vroughness=0.3,
+                             distribution="beckmann"),
+                       Mix((0.9, 0.9, 1.0), (0.6, 1.0, 0.8), 0.3)))
+    scene.add(Cube((-1.3, -1.0, 0.7), (-0.8, -0.5, 1.2),
+                   Matte(kd=0.8, sigma=15.0), Checkerboard(0.1, 0.02)))
+    scene.add(Cone((-0.3, -1.0, 0.9), 0.8, 0.3, Matte(kd=0.9),
+                   Bilerp((0.2, 0.4, 1.0), (1.0, 0.4, 0.2),
+                          (0.4, 1.0, 0.2), (0.9, 0.9, 0.9))))
+    scene.add(Disk((0.4, 0.6, 1.3), 0.4, 0.1, Matte(), UV()))
+    scene.add(Paraboloid((0.3, -1.0, 0.9), 0.0, 0.5, 0.25, Matte(kd=0.8),
+                         ScaleT((0.9, 0.6, 0.5), (0.8, 1.0, 0.9))))
+    scene.add(Hyperboloid((-0.9, 0.5, 0.8), (0.3, 0.0, -0.3),
+                          (0.4, 0.0, 0.3), Matte(kd=0.9), UV()))
+    scene.add(AreaLight(
+        Rectangle((-0.5, 1.48, -0.5), (0.5, 1.48, 0.5), Matte()),
+        (6.0, 6.0, 6.0)))
     return scene
 
 

@@ -61,8 +61,14 @@ HIT_OPS = {
     C.PARABOLOID: 130,
     C.CORNELLBOX: 70,
 }
-# shading frame, BSDF sample and path update of a hit (path.cuh `bounce`)
-SHADE_OPS = {C.MATTE: 130, C.MIRROR: 90}
+# shading frame, BSDF sample and path update of a hit (path.cuh `bounce`;
+# metal and glass in bsdf.cuh: the microfacet half-vector, reflection or
+# refraction, D twice, the Fresnel term and the pdf, an isotropic GGX sample's
+# count; glass the mean of its specular and rough lobes)
+SHADE_OPS = {C.MATTE: 130, C.MIRROR: 90, C.METAL: 350, C.GLASS: 300}
+# the surface color of a uv texture (bsdf.cuh `texture_color`)
+TEX_OPS = {C.UNIFORM_COLOR: 0, C.CHECKERBOARD: 14, C.CHECKERBOARD2: 8,
+           C.BILERP: 29, C.MIXF: 12, C.SCALE: 3, C.UVF: 4}
 # light sample, geometry terms and the light's BSDF value (before the scan)
 NEE_OPS = 100
 # per light, once per launch: its area pdf and oriented normal
@@ -71,7 +77,14 @@ LIGHT_OPS = 20
 CAMERA_OPS = 30
 # K2: the adjoint of one hit bounce beyond its forward, by winner category
 # (adjoint.cuh `bounce_adj`, shape adjoints), and of the camera
-ADJ_SHADE_OPS = {C.MATTE: 420, C.MIRROR: 200}
+# (metal and glass: three times their forward, what a reverse sweep of the
+# sample costs, not the forward-mode tangents `material_adj` runs)
+ADJ_SHADE_OPS = {C.MATTE: 420, C.MIRROR: 200, C.METAL: 3 * 350,
+                 C.GLASS: 3 * 300}
+# a texture's adjoint (`texture_adj`), with the hit's u, v adjoint through
+# the shape (an atan2 and, on a sphere, an acos) where the texture reads them
+ADJ_TEX_OPS = {C.UNIFORM_COLOR: 3, C.CHECKERBOARD: 0, C.CHECKERBOARD2: 11,
+               C.BILERP: 50 + 90, C.MIXF: 15, C.SCALE: 6, C.UVF: 2 + 90}
 ADJ_NEE_OPS = 225
 ADJ_HIT_OPS = {
     C.SPHERE: 110,
@@ -118,11 +131,18 @@ def bounce_ops(static, r: dict) -> tuple:
                        device=dev)[r["obj_id"].long().clamp(min=0)]
     mat = torch.tensor(static.material_categories, dtype=torch.long,
                        device=dev)[r["mat_row"].long()]
+    obj = r["obj_id"].long().clamp(min=0)
+    tex = torch.tensor([static.texture_categories[t]
+                        for t in static.object_tex_rows], dtype=torch.long,
+                       device=dev)[obj]
+    # the Cornell box's walls take their color from the wall, not a texture
+    tex = torch.where(cat == C.CORNELLBOX, C.UNIFORM_COLOR, tex)
     alive = r["alive"].to(f64)
     k1 = _test_ops(r["scan"]) * r["entered"] + (
-        _table(HIT_OPS, cat)[cat] + _table(SHADE_OPS, mat)[mat]) * alive
-    adj = (_table(ADJ_HIT_OPS, cat)[cat] + _table(ADJ_SHADE_OPS, mat)[mat]) \
-        * alive
+        _table(HIT_OPS, cat)[cat] + _table(SHADE_OPS, mat)[mat]
+        + _table(TEX_OPS, tex)[tex]) * alive
+    adj = (_table(ADJ_HIT_OPS, cat)[cat] + _table(ADJ_SHADE_OPS, mat)[mat]
+           + _table(ADJ_TEX_OPS, tex)[tex]) * alive
     if r["shadow"] is not None:
         nee = r["nee"].to(f64)
         k1 = k1 + (NEE_OPS + _test_ops(r["shadow"])) * nee

@@ -133,3 +133,24 @@ def test_largest_scene_of_the_slice_fits_k2():
     _, static = scene.pack()
     size = param_offsets(static).size
     assert size == 336 <= cap
+
+
+def test_ctypes_bindings_match_the_c_entries():
+    """Each C entry's parameters, read from its source, against the
+    argument types the wrapper binds it with: pointers where the C side
+    takes a pointer, ints where it takes an int, and as many."""
+    import ctypes
+    import re
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    csrc = os.path.join(os.path.dirname(build.__file__), "..", "csrc")
+    for source, name, argtypes in (
+            ("megakernel.cu", "sail_render_block", mk.K1_ARGTYPES),
+            ("megakernel_grad.cu", "sail_render_grad_block", mk.K2_ARGTYPES),
+            ("megakernel_grad.cu", "sail_reduce_grad_rows",
+             mk.REDUCE_ARGTYPES)):
+        with open(os.path.join(csrc, source)) as f:
+            text = f.read()
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1)
+        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                 for p in params.split(",")]
+        assert kinds == argtypes, name

@@ -1,7 +1,8 @@
 """The gradient path on the new shapes and on many objects, on the CPU,
 against the JAX package: torch autograd through the plain integrator
 against `jax.grad` per leaf (8², 2 bounces), K2's plain version against the
-Pallas K2 in interpret mode, and K2's choice of gradient-array size.
+Pallas K2 in interpret mode on the smallest scene that takes the batched
+fold, and K2's choice of gradient-array size.
 
 Tolerance rtol = atol = 2e-4 per leaf, with JAX's rsqrt taken as `1/sqrt`
 (the fixture and the tolerance of tests/test_torch_grad.py)."""
@@ -15,6 +16,7 @@ from sail_tpu.core.vecmath import Vec3 as JVec3
 from sail_tpu.ops.pallas.megakernel import render_grad_block_pallas
 from sail_tpu_torch import scenes as tscenes
 from sail_tpu_torch.ops.cuda import megakernel as mk
+from sail_tpu_torch.scene.scene import BATCH_THRESHOLD
 
 from test_intersect import _many_sphere_scene
 from test_torch_grad import TOL, _bridge, _g, _jax_grad, _torch_grad
@@ -38,18 +40,40 @@ def test_autograd_matches_jax_grad(name, jax_rsqrt_as_port):
                                    err_msg=f"leaf {i}")
 
 
+def _eight_spheres():
+    """The smallest scene that takes the batched fold: BATCH_THRESHOLD = 8
+    matte spheres, three of them emissive, and nothing else.  Without a
+    light or a box the Pallas K2 in interpret mode compiles in about a
+    minute on the CPU; the 12-sphere scene in a box under a light took
+    995 s there, cold.  The batched fold with light sampling is held by
+    `test_autograd_matches_jax_grad[spheres12]` against `jax.grad`."""
+    from sail_tpu import Camera, Matte, Scene, Sphere
+    scene = Scene()
+    scene.add(Camera((0, 0, -2.5), (0, 0, 0)))
+    for k in range(8):
+        scene.add(Sphere((-0.8 + 1.6 * (k % 4) / 3.0, -0.4 + 0.8 * (k // 4),
+                          0.2 * (k % 2)), 0.35, Matte(kd=0.8),
+                         emission=(2.0, 1.5, 1.0) if k % 3 == 0 else
+                         (0.0, 0.0, 0.0)))
+    return scene
+
+
 def test_grad_block_matches_pallas_interpret():
     """K2's wrapper on CPU tensors against the JAX package's K2 in interpret
-    mode on the 12-sphere scene: 8², 1 bounce, 1 spp."""
-    packed, static = _many_sphere_scene(12).pack()
+    mode on a scene that takes the batched fold (`_eight_spheres`): 8², 1
+    bounce, 1 spp, so the gradient is each pixel's winning sphere's
+    emission: the fold must pick JAX's winner."""
+    packed, static = _eight_spheres().pack()
+    assert len(static.object_categories) == BATCH_THRESHOLD
     g = _g(8, 8)
     want = render_grad_block_pallas(
         packed, static, JVec3(*(jnp.asarray(c.numpy()) for c in g)), 8, 8, 1,
         0, 0, max_bounces=1, tile_rows=8, tile_cols=8, interpret=True)
     want = np.stack([np.asarray(l) for l in jax.tree.leaves(want)])
     params, tstatic = _bridge(packed, static)
+    assert mk.scene_table(tstatic).n_groups == 1
     got = mk.render_grad_block(params, tstatic, g, 8, 8, 1, 0, 0, 1).numpy()
-    assert np.isfinite(got).all() and np.abs(got).max() > 0
+    assert np.isfinite(got).all() and (np.abs(got) > 0).sum() >= 9
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 

@@ -84,8 +84,17 @@ def _disk_light():
     return scene
 
 
+def _point_light():
+    import sail_tpu as sail
+    scene = sail.Scene()
+    scene.add(sail.Camera((0.0, 0.0, -2.5), (0.0, 0.0, 0.0)))
+    scene.add(sail.Sphere((0.0, -0.3, 0.3), 0.3, sail.Metal()))
+    scene.add(sail.PointLight((0.0, 0.9, 0.0), (5.0, 5.0, 5.0)))
+    return scene
+
+
 @pytest.mark.parametrize("scene_fn,match", [
-    (jscenes.material_demo, "not ported yet"),
+    (_point_light, "not ported yet"),
     (jscenes.lights_and_quadrics, "not ported yet"),
     (_disk_light, "area sampling of the other emitter shapes"),
 ])
@@ -104,3 +113,27 @@ def test_bad_arguments_raise():
     with pytest.raises(ValueError):
         mk.render_block(params, static, 8, 4, 1, 0, 0, 1, row0=4,
                         image_height=8)
+
+
+def test_scene_table_names_the_material_build_and_distribution():
+    """A scene of matte, mirror and uniform colors keeps the kernels'
+    smaller build; a metal, a glass or a uv texture asks for the MATS one;
+    each material row carries its microfacet distribution (GGX where the
+    variant is 0), after its category and offset."""
+    from sail_tpu_torch import UV
+    from sail_tpu_torch import constants as C
+    assert not mk.scene_table(tscenes.cornell_mirror().pack()[1]).materials
+    params, static = tscenes.material_demo().pack()
+    table = mk.scene_table(static)
+    assert table.materials and not table.all_shapes
+    scene = tscenes.cornell_matte()
+    scene.objects[1].texture = UV()
+    assert mk.scene_table(scene.pack()[1]).materials
+    n_obj, _, n_groups, n_mat, _, _ = mk._counts(static)
+    rows = table.ints[6 * n_obj + 2 * n_groups:][:3 * n_mat]
+    assert rows[0::3] == static.material_categories
+    assert rows[1::3] == table.offsets.materials
+    assert rows[2::3] == tuple(v or C.TROWBRIDGE_REITZ
+                               for v in static.material_variants)
+    beck = tscenes.material_check().pack()[1]
+    assert C.BECKMANN in mk.scene_table(beck).ints

@@ -20,7 +20,12 @@ from sail_tpu_torch.utils import opcount
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("name", ["cornell_matte", "cornell_mirror"])
+K2_OVER_K1 = {"cornell_matte": 2.0, "cornell_mirror": 2.0,
+              "material_demo": 1.5}
+
+
+@pytest.mark.parametrize("name", ["cornell_matte", "cornell_mirror",
+                                  "material_demo"])
 def test_live_ops_below_jax_masked_count(name):
     packed, static = getattr(jscenes, name)().pack()
     _, raw = jopcount.integrator_ops_per_lane(packed, static, 2)
@@ -28,7 +33,10 @@ def test_live_ops_below_jax_masked_count(name):
     k1, k2 = opcount.live_ops(params, tstatic, 8, 8, 1, 0, 2)
     per_pixel = k1 / 64
     assert 0.2 * raw < per_pixel < raw
-    assert k2 > 2 * k1      # one forward and its adjoint, which costs more
+    # one forward and its adjoint, which costs more; on material_demo more
+    # of the forward is the scans over its eight objects, which the adjoint
+    # does not repeat
+    assert k2 > K2_OVER_K1[name] * k1
 
 
 @pytest.mark.parametrize("cat", [C.SPHERE, C.RECTANGLE])

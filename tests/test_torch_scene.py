@@ -50,6 +50,39 @@ def test_bridge_round_trip(name, n_leaves):
     assert float(view.objects[1].radius) == float(packed.objects[1].radius)
 
 
+@pytest.mark.parametrize("name,n_leaves", [("material_demo", 126),
+                                           ("material_demo_open", 111)])
+def test_material_scene_pack_matches_jax_leaves(name, n_leaves):
+    """Config 3 and its open twin: the metal row (uroughness, vroughness,
+    eta, k), the glass row (kr, kt, eta, uroughness, vroughness) and the
+    Checkerboard2 row (color1, color2, size) in `jax.tree.flatten` order,
+    every leaf equal but the camera basis's, which the port normalizes with
+    `1/sqrt` where JAX's XLA takes its rsqrt: there 2e-7.  The bridge
+    carries JAX's leaves across exactly, and the view reads them."""
+    leaves, jstatic = _jax_pack(name)
+    params, static = getattr(tscenes, name)().pack()
+    assert params.shape == (n_leaves,)
+    assert static == static_from_jax(jstatic)
+    bridged = params_from_jax_leaves(leaves)
+    np.testing.assert_array_equal(bridged.numpy(), np.stack(leaves))
+    off = unflatten(bridged, static)
+    cam = n_leaves - 14
+    np.testing.assert_array_equal(params[:cam].numpy(), np.stack(leaves[:cam]))
+    np.testing.assert_allclose(params[cam:].numpy(), np.stack(leaves[cam:]),
+                               rtol=2e-7, atol=2e-7)
+    metal = static.material_categories.index(3)
+    assert float(off.materials[metal].uroughness) == pytest.approx(0.1)
+    assert tuple(float(v) for v in off.materials[metal].k) == \
+        pytest.approx((13.028170336874789, 8.112634272577575,
+                       5.502811570992323))
+    glass = static.material_categories.index(4)
+    assert float(off.materials[glass].eta) == pytest.approx(1.5)
+    floor = off.textures[static.object_tex_rows[1 if name == "material_demo"
+                                                else 0]]
+    assert float(floor.size) == pytest.approx(0.25)
+    assert tuple(float(v) for v in floor.color2) == pytest.approx((0.2,) * 3)
+
+
 def test_shared_material_is_deduplicated():
     from sail_tpu_torch import AreaLight, Camera, Cornellbox, Matte, Rectangle
     from sail_tpu_torch import Scene, Sphere
