@@ -4,10 +4,11 @@
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device and build: torch, CUDA, nvcc, the card's name and power limit;
-     builds K1 (csrc/megakernel.cu, eight scene kinds) and K2
-     (csrc/megakernel_grad.cu, six builds), one nvcc each, started
-     together, and reports each kernel's registers, stack and spills (nvcc
-     -Xptxas -v).
+     builds K1 (csrc/megakernel.cu, eight scene kinds), K2
+     (csrc/megakernel_grad.cu, six builds) and the profiling kernels
+     (csrc/profile.cu: K5a, K5b, K5c, K1 with each of four phases
+     stripped), one nvcc each, started together, and reports each kernel's
+     registers, stack and spills (nvcc -Xptxas -v).
   2. kernel vs plain on the card: K1 against its plain torch version on the
      same CUDA tensors (cornell_matte, cornell_mirror, a row tile, a ragged
      block with another seed, and open_lights: misses, Oren-Nayar, an
@@ -70,10 +71,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
      version on a row tile of the step (relative L-inf and per leaf with
      the pixel term) and at 64² x 4 spp on material_check, where u and v
      carry gradient.
+  8. the profiling path: K5a (the intersect-only path) bit for bit against
+     its plain version at 64² x 4 spp x 5 bounces on cornell_mirror,
+     material_demo_open (misses) and 16 spheres (the batched fold), and on
+     a full-width row tile at 1024² x 64 x 5; each stripped K1 build bit for
+     bit against its stripped plain version at 64² x 4 x 3 and different
+     from the full image, and on a full-width row tile at 1024² x 64 x 5;
+     K5b and K5c against their plain versions at K = 1, 2, 3 and at full
+     K (fma within 1 ulp, the rsqrt mixes within MIX_RTOL); then the sections `phases` (1024² x 64 x 5) and `vpu_peak`
+     of sail_tpu_torch/tools/profile_megakernel.py, their launches counted,
+     where K5a at 64 spp must take 50 times its 1-spp time and every
+     stripped image must differ from the full one, printed as one JSON
+     line; then tools/determinism_check.py at 256² x 8 x 5, which must
+     pass, and tools/occupancy_study.py at 256² x 4 x 5, one JSON line each.
 Every kernel's bound is computed from this run's inputs: the FP32
 operations the plain version's masks say these paths need
 (sail_tpu_torch/utils/opcount.py) over 67 TFLOP/s, or the bytes over
-3.35 TB/s, whichever is larger.  The last two lines are a JSON object per
+3.35 TB/s, whichever is larger; K5b's and K5c's, the slower of their FP32
+operations over 67 TFLOP/s and their rsqrts over the SFU's 16 per SM per
+clock at the card's maximum SM clock.  The last two lines are a JSON object per
 kernel and the JSON result.  Imports nothing of JAX.
 """
 import json
@@ -121,6 +137,14 @@ K2_TILE = {MANY: (4, 510), MOST: (16, 504), "material_demo": (8, 508),
 # open scene's alive fractions at the main path's size
 CHECK = (64, 4, 3)
 ALIVE_SAMPLES = 4
+# phase 8: K5a's check shape (size, spp, bounces), the stripped builds',
+# K5b/K5c's tolerance for the rsqrt mixes (rsqrtf against torch.rsqrt,
+# relative, elementwise), and the tools' shapes (size, spp, bounces)
+PROF_CHECK = (64, 4, 5)
+STRIP_CHECK = (64, 4, 3)
+MIX_RTOL = 1e-6
+DET_SHAPE = (256, 8, 5)
+OCC_SHAPE = (256, 4, 5)
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                        "goldens")
 
@@ -917,41 +941,205 @@ def materials_path(dev, card: str) -> list:
     return rows
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 1
-    from sail_tpu_torch import Renderer, scenes
+def profiling_path(dev, card: str) -> list:
+    """Phase 8: the profiling path.  K5a, each stripped K1 build and K5b/K5c
+    against their plain versions; then the sections `phases` and
+    `vpu_peak` of sail_tpu_torch/tools/profile_megakernel.py at full size,
+    whose launches are counted; then determinism_check and occupancy_study,
+    one JSON line each.  Returns the kernels' JSON entries."""
     from sail_tpu_torch.ops.cuda import megakernel as mk
-    from sail_tpu_torch.utils import build
+    from sail_tpu_torch.ops.cuda import profile as pf
+    from sail_tpu_torch.tools import determinism_check as det
+    from sail_tpu_torch.tools import occupancy_study as occ
+    from sail_tpu_torch.tools import profile_megakernel as prof
+    from sail_tpu_torch.utils import opcount
 
-    dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()
-    nvcc = next((ln for ln in nvcc if "release" in ln), nvcc[-1])
-    t0 = time.perf_counter()
-    build.build("megakernel", "megakernel_grad")   # one nvcc each, together
-    build_s = time.perf_counter() - t0
-    usage = {**build.resource_usage("megakernel"),
-             **build.resource_usage("megakernel_grad")}
-    flags = ("false", "true")
-    for kernel in (*(f"render_block_kernel<{a}, {c}, {m}>" for a in flags
-                     for c in flags for m in flags), "reduce_grad_rows_kernel",
-                   *(f"render_grad_kernel<{cap}, {m}>" for cap in mk.GRAD_CAPS
-                     for m in flags)):
-        if kernel not in usage:
-            raise AssertionError(f"no -Xptxas -v report for {kernel}")
-    print(card)
-    print(f"phase 1 device+build: torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | nvcc {nvcc} | {torch.cuda.get_device_name(0)}"
-          f" x{torch.cuda.device_count()} | K1 and K2 built in {build_s:.1f} s"
-          + "".join(f" | {k}: {u['registers']} registers, {u['stack']} B "
-                    f"stack, {u['spill_stores']}/{u['spill_loads']} B spill "
-                    f"stores/loads" for k, u in sorted(usage.items())),
+    results = []
+    size, spp, bounces = PROF_CHECK
+    k5a_err = 0.0
+    # K5a bit for bit: a closed scene, an open one (misses restart at the
+    # origin), the batched fold; then a full-width row tile of the main shape
+    for name, rows, row0, image_h, n, b in (
+            ("cornell_mirror", size, 0, size, spp, bounces),
+            ("material_demo_open", size, 0, size, spp, bounces),
+            (f"spheres{FEW}", size, 0, size, spp, bounces),
+            ("cornell_mirror", K1_TILE[0], K1_TILE[1], H, SPP, BOUNCES)):
+        params, static = scene_of(name).pack()
+        width = W if image_h == H else size
+        args = (params.to(dev), static, rows, width, n, b, row0, image_h)
+        got = pf.isect_only_block(*args)
+        want = pf.isect_only_plain(*args)
+        err = float((got - want).abs().max())
+        k5a_err = max(k5a_err, err)
+        results.append(f"K5a {name} rows {row0}-{row0 + rows - 1} of "
+                       f"{image_h} x {width} spp{n} b{b}: max_abs {err:.3g}, "
+                       f"mean {float(want.mean()):.4f}")
+        if not torch.equal(got, want) or not float(want.max()) > 0:
+            raise AssertionError(f"K5a is not its plain version bit for bit "
+                                 f"or sees nothing: {results[-1]}")
+
+    # each stripped K1 build against its stripped plain version, and not the
+    # full image (else the strip did not take)
+    size, spp, bounces = STRIP_CHECK
+    params, static = scene_of("cornell_mirror").pack()
+    args = (params.to(dev), static, size, size, spp, 0, 0, bounces)
+    full = mk.render_block(*args).stack()
+    for strip in pf.STRIPS:
+        got = pf.render_block_stripped(strip, *args).stack()
+        want = pf.render_block_stripped_plain(strip, *args).stack()
+        bit, differs = torch.equal(got, want), not torch.equal(got, full)
+        results.append(f"K1 {strip} cornell_mirror {size}x{size} spp{spp} "
+                       f"b{bounces}: bit-identical {bit}, differs from full "
+                       f"K1 {differs} (mean {float(got.mean()):.4f} against "
+                       f"{float(full.mean()):.4f})")
+        if not (bit and differs):
+            raise AssertionError(f"a stripped K1 build: {results[-1]}")
+
+    # K5b/K5c against their plain versions before and after the values
+    # settle (fma_mix overflows to +inf from its 2nd iteration,
+    # integrator_mix reaches its fixed point in ~5): fma within 1 ulp, the
+    # rsqrt mixes (rsqrtf against torch.rsqrt) within MIX_RTOL
+    alu_err, plain_alu = {}, {}
+    for key, mix, (r, cn, g, k), chains in prof.ALU_CASES:
+        for iters in (1, 2, 3, k):
+            if chains == 1:
+                got = pf.alu_peak(mix, r, cn, g, iters, device=dev)
+                call = (pf.alu_peak_plain, mix, r, cn, g, iters, dev)
+            else:
+                got = pf.alu_peak_ilp8(r, cn, g, iters, device=dev)
+                call = (pf.alu_peak_ilp8_plain, r, cn, g, iters, dev)
+            want, ms = cuda_ms(*call)
+            same = got == want   # +inf == +inf
+            d = torch.where(same, 0.0, (got - want).abs())
+            ulp = pf.ulp_diff(got, want)
+            rel = float((d / want.abs()).max())
+            ok = ulp <= 1 if mix == "fma" else rel <= MIX_RTOL
+            if iters == k:
+                alu_err[key], plain_alu[key] = float(d.max()), ms
+            results.append(f"{key} K={iters}: max_abs {float(d.max()):.3g}, "
+                           f"rel {rel:.3g}, {ulp} ulp, +inf "
+                           f"{int(torch.isinf(got).sum())}/{got.numel()}")
+            if not ok or not bool((torch.isinf(got) == torch.isinf(want))
+                                  .all()):
+                raise AssertionError(f"K5b/K5c disagrees with its plain "
+                                     f"version: {results[-1]}")
+
+    print("phase 8 checks: " + "; ".join(results), flush=True)
+
+    # -- the main path: the profile tool's phases and vpu_peak sections ----
+    size, spp, bounces = H, SPP, BOUNCES
+    for fn in (mk.render_block, pf.render_block_stripped,
+               pf.isect_only_block, pf.alu_peak, pf.alu_peak_ilp8):
+        fn.launches = 0
+    phases = prof.phases_section(dev, size, spp, bounces, iters=TIMED_RUNS)
+    peak = prof.vpu_peak_section(dev, TIMED_RUNS)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in (
+        mk.render_block, pf.render_block_stripped, pf.isect_only_block,
+        pf.alu_peak, pf.alu_peak_ilp8)}
+    label = (f"profile_megakernel sections phases (cornell_mirror {W}x{H} "
+             f"spp{SPP} b{BOUNCES}) and vpu_peak")
+    print(json.dumps({"profile": {"phases": phases, "vpu_peak": peak,
+                                  "launches": launches, "card": card}}),
           flush=True)
+    ratio = phases["intersect_only_spp_ratio"]
+    if min(launches.values()) < 1 or ratio < 50 or not all(
+            phases["stripped_differs_from_full"].values()):
+        raise AssertionError(f"the profile's sections made {launches} "
+                             f"launches, K5a spp{spp}/spp1 time ratio "
+                             f"{ratio:.1f}, stripped images differ from the "
+                             f"full one: {phases['stripped_differs_from_full']}")
+
+    # -- the kernels' rows: plain versions timed, bounds from these inputs --
+    params, static = scene_of("cornell_mirror").pack()
+    params = params.to(dev)
+    full_args = (params, static, H, W, SPP, BOUNCES)
+    _, k5a_plain_ms = cuda_ms(pf.isect_only_plain, *full_args)
+    small = 4 * (params.numel() + len(mk.scene_table(static).ints))
+    b = dict(zip(("bound_ms", "bound_by"), opcount.bound_ms(
+        opcount.isect_only_ops(params, static, H, W, SPP, BOUNCES),
+        small + 4 * H * W)))
+    shape = f"cornell_mirror {W}x{H} spp{SPP} b{BOUNCES}"
+    rows = [kernel_row(
+        "K5a isect_only_block (intersect-only path)",
+        "sail_tpu_torch/csrc/profile.cu + path.cuh",
+        "tools/profile_megakernel.py:380", launches["isect_only_block"],
+        k5a_err, phases["intersect_only_ms"], k5a_plain_ms, b, shape,
+        launches_counted_on=label, spp1_ms=phases["intersect_only_spp1_ms"],
+        spp_ratio=ratio)]
+    rows_t, row0 = K1_TILE
+    tile = []
+    for strip in pf.STRIPS:
+        # bit for bit on a full-width row tile of the main shape, all bounces
+        targs = (params, static, rows_t, W, SPP, 0, 0, BOUNCES, row0, H)
+        tile_ms = median_ms(pf.render_block_stripped, strip, *targs)
+        got = pf.render_block_stripped(strip, *targs).stack()
+        want, plain_ms = cuda_ms(pf.render_block_stripped_plain, strip,
+                                 *targs)
+        want = want.stack()
+        err = float((got - want).abs().max())
+        tile.append(f"K1 {strip} rows {row0}-{row0 + rows_t - 1} of {H} x "
+                    f"{W} spp{SPP} b{BOUNCES}: max_abs {err:.3g}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"a stripped K1 build is not its plain "
+                                 f"version bit for bit: {tile[-1]}")
+        with pf.stripped(strip):   # the work the stripped paths need
+            b = bound(params, static, H, W, SPP, BOUNCES, samples=1,
+                      row_step=32)
+        rows.append(kernel_row(
+            f"K1 render_block_stripped({strip!r})",
+            "sail_tpu_torch/csrc/profile.cu + path.cuh",
+            "sail_tpu/ops/pallas/megakernel.py:159 under "
+            "tools/profile_megakernel.py:325-350",
+            launches["render_block_stripped"], err, phases[f"{strip}_ms"],
+            plain_ms, b, shape, launches_counted_on=label,
+            plain_shape=f"cornell_mirror rows {row0}-{row0 + rows_t - 1} of "
+            f"{H} x {W} spp{SPP} b{BOUNCES}", tile_ms=tile_ms,
+            full_ms=phases["full_ms"], cost_ms=phases[prof.COSTS[strip]]))
+    for key, mix, (r, cn, g, k), chains in prof.ALU_CASES:
+        e = peak[key]
+        rows.append(kernel_row(
+            f"K5c alu_peak_ilp8 ({key})" if chains > 1 else
+            f"K5b alu_peak ({key})", "sail_tpu_torch/csrc/profile.cu",
+            "tools/profile_megakernel.py:572" if chains > 1 else
+            "tools/profile_megakernel.py:519",
+            launches["alu_peak_ilp8" if chains > 1 else "alu_peak"],
+            alu_err[key], e["ms"], plain_alu[key],
+            dict(bound_ms=e["bound_ms"], bound_by="operations"),
+            f"R={r} Cn={cn} G={g} K={k}" + (f" x{chains} chains"
+                                            if chains > 1 else ""),
+            launches_counted_on=label, bound_pipe=e["bound_pipe"],
+            achieved_fp32_tflops=e["achieved_fp32_tflops"],
+            achieved_sfu_tops=e["achieved_sfu_tops"],
+            achieved_tpu_unit_tops=e["achieved_tops_per_s"],
+            sm_clock_max_mhz=peak["sm_clock_max_mhz"]))
+
+    # -- the tools -----------------------------------------------------------
+    d = det.run(*DET_SHAPE, device=dev)
+    print(json.dumps({"determinism_check": d}), flush=True)
+    if not d["all_pass"]:
+        raise AssertionError(f"determinism_check failed: {d}")
+    o = occ.run(*OCC_SHAPE, device=dev)
+    print(json.dumps({"occupancy_study": o}), flush=True)
+    print(f"phase 8 profiling path: kernels vs plain as above; "
+          + "; ".join(tile) + f" | {label}: "
+          f"launches {launches}; K1 full {phases['full_ms']:.2f} ms, "
+          + ", ".join(f"{s} {phases[s + '_ms']:.2f} ms" for s in pf.STRIPS)
+          + f", K5a {phases['intersect_only_ms']:.2f} ms (spp1 "
+          f"{phases['intersect_only_spp1_ms']:.3f} ms, ratio {ratio:.1f}); "
+          + ", ".join(f"{k} {v['ms']:.3f} ms = {v['achieved_fp32_tflops']:.1f}"
+                      f" FP32 TFLOP/s, {v['share_of_bound']:.1%} of bound"
+                      for k, v in peak.items() if isinstance(v, dict))
+          + f" | determinism_check {DET_SHAPE}: all_pass {d['all_pass']} | "
+          f"occupancy_study {OCC_SHAPE} done | {card}", flush=True)
+    return rows
+
+
+def kernel_vs_plain(dev, card: str) -> list:
+    """Phase 2: K1 against its plain version on the card, and the goldens.
+    Returns no kernel entry (phase 3 gives K1's)."""
+    from sail_tpu_torch import scenes
+    from sail_tpu_torch.ops.cuda import megakernel as mk
 
     # -- phase 2: K1 against its plain version and the goldens --------------
     results = []
@@ -985,6 +1173,14 @@ def main() -> int:
         results.append(f"golden {golden} max_abs {err:.3g}")
         np.testing.assert_allclose(img, ref, atol=TOL, rtol=TOL)
     print("phase 2 kernel vs plain: " + "; ".join(results), flush=True)
+    return []
+
+
+def main_path(dev, card: str) -> list:
+    """Phase 3: the forward path through exactly one K1 launch, K1 against
+    its plain version at its shape, both timed.  Returns K1's JSON entry."""
+    from sail_tpu_torch import Renderer, scenes
+    from sail_tpu_torch.ops.cuda import megakernel as mk
 
     # -- phase 3: the main path, through exactly one K1 launch --------------
     scene = scenes.cornell_mirror()
@@ -1049,16 +1245,67 @@ def main() -> int:
     if bad:
         raise AssertionError("K1 disagrees with its plain version at the "
                              "main path's shape")
-
-    k1 = kernel_row("K1 render_block (forward megakernel)",
+    return [kernel_row("K1 render_block (forward megakernel)",
                     "sail_tpu_torch/csrc/megakernel.cu",
                     "sail_tpu/ops/pallas/megakernel.py:159", launches, err,
                     k1_ms, plain_ms, bound(params.to(dev), static, H, W, SPP,
                                            BOUNCES),
-                    f"cornell_mirror {W}x{H} spp{SPP} b{BOUNCES}")
-    kernels = [k1] + gradient_path(dev, card)
-    kernels += many_objects(dev, card) + many_gradients(dev, card)
-    kernels += materials_path(dev, card)
+                    f"cornell_mirror {W}x{H} spp{SPP} b{BOUNCES}")]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.utils import build
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    nvcc = next((ln for ln in nvcc if "release" in ln), nvcc[-1])
+    t0 = time.perf_counter()
+    sources = ("megakernel", "megakernel_grad", "profile")
+    build.build(*sources)   # one nvcc each, started together
+    build_s = time.perf_counter() - t0
+    usage = {k: v for src in sources
+             for k, v in build.resource_usage(src).items()}
+    flags = ("false", "true")
+    for kernel in (*(f"render_block_kernel<{a}, {c}, {m}, 0>" for a in flags
+                     for c in flags for m in flags), "reduce_grad_rows_kernel",
+                   *(f"render_grad_kernel<{cap}, {m}>" for cap in mk.GRAD_CAPS
+                     for m in flags),
+                   *(f"isect_only_kernel<{a}>" for a in flags),
+                   "alu_peak_kernel<0>", "alu_peak_kernel<1>",
+                   "alu_peak_ilp8_kernel",
+                   *(f"render_block_kernel<false, false, false, {b}>"
+                     for b in (1, 2, 4, 8))):
+        if kernel not in usage:
+            raise AssertionError(f"no -Xptxas -v report for {kernel}")
+    print(card)
+    print(f"phase 1 device+build: torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | nvcc {nvcc} | {torch.cuda.get_device_name(0)}"
+          f" x{torch.cuda.device_count()} | K1, K2 and the profiling kernels "
+          f"built in {build_s:.1f} s"
+          + "".join(f" | {k}: {u['registers']} registers, {u['stack']} B "
+                    f"stack, {u['spill_stores']}/{u['spill_loads']} B spill "
+                    f"stores/loads" for k, u in sorted(usage.items())),
+          flush=True)
+
+    kernels = []
+    seconds = {1: time.perf_counter() - t0}
+    for phase, fn in ((2, kernel_vs_plain), (3, main_path),
+                      (4, gradient_path), (5, many_objects),
+                      (6, many_gradients), (7, materials_path),
+                      (8, profiling_path)):
+        t1 = time.perf_counter()
+        kernels += fn(dev, card)
+        seconds[phase] = time.perf_counter() - t1
+    print("seconds per phase: " + ", ".join(f"{k}: {v:.1f}"
+                                            for k, v in seconds.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -112,6 +112,27 @@ __device__ __forceinline__ void uniform3(uint32_t sid, uint32_t row, uint32_t co
   c = (float)(z >> 8) * scale;
 }
 
+// The phases a profiling build of K1 strips (csrc/profile.cu, the counterparts
+// of the patches of tools/profile_megakernel.py's `phases_section`): a bit
+// mask, a template parameter of `bounce` that is 0 (strip nothing) in K1 and
+// K2.  CONST_RNG: every uniform3 gives (0.5, 0.5, 0.5), the pixel jitter
+// included; CONST_TEXTURE: the surface color is (1, 1, 1), the Cornell
+// walls' included; NO_SHADOW: no shadow scan, every light sample visible;
+// NO_NEE: no light sample adds radiance (the next bounce still skips the
+// emission NEE would have counted, as the patched integrator does).
+constexpr int STRIP_CONST_RNG = 1, STRIP_CONST_TEXTURE = 2, STRIP_NO_SHADOW = 4,
+              STRIP_NO_NEE = 8;
+
+template <int STRIP = 0>
+__device__ __forceinline__ void draw3(uint32_t sid, uint32_t row, uint32_t col, float& a, float& b,
+                                      float& c) {
+  if constexpr ((STRIP & STRIP_CONST_RNG) != 0) {
+    a = b = c = F(0.5);
+  } else {
+    uniform3(sid, row, col, a, b, c);
+  }
+}
+
 // ----------------------------------------------------------- fastmath ----
 __device__ __forceinline__ float atan_poly(float t) {
   float t2 = t * t;
@@ -842,7 +863,7 @@ struct Bounce {
 // next-event estimation with a shadow ray.  Returns false on a miss (the path
 // adds nothing more); otherwise adds the bounce's radiance to `e` and
 // advances `st`.
-template <bool ALL = true, bool CULL = true, bool MATS = true>
+template <bool ALL = true, bool CULL = true, bool MATS = true, int STRIP = 0>
 __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uint32_t seed,
                                        uint32_t sample, int bounce_idx, uint32_t row, uint32_t col,
                                        Bounce& v) {
@@ -878,11 +899,16 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
 
   v.tcat = __ldg(s.tex + 2 * tex_row);
   v.tex_off = __ldg(s.tex + 2 * tex_row + 1);
-  V3 sc = h.use_sc ? h.sc : (MATS ? texture_color(s, v.tcat, v.tex_off, h.u, h.v) : P3(s, v.tex_off));
+  V3 sc;
+  if constexpr ((STRIP & STRIP_CONST_TEXTURE) != 0) {
+    sc = {F(1.0), F(1.0), F(1.0)};
+  } else {
+    sc = h.use_sc ? h.sc : (MATS ? texture_color(s, v.tcat, v.tex_off, h.u, h.v) : P3(s, v.tex_off));
+  }
   v.sc = sc;
 
   float u1, u2, u_lobe;
-  uniform3(stream_id(seed, sample, bounce_idx, TAG_BSDF), row, col, u1, u2, u_lobe);
+  draw3<STRIP>(stream_id(seed, sample, bounce_idx, TAG_BSDF), row, col, u1, u2, u_lobe);
   int mcat = __ldg(s.mat + 3 * mat_row);
   v.mcat = mcat;
   v.moff = __ldg(s.mat + 3 * mat_row + 1);
@@ -927,9 +953,9 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
   v.nee_on = false;
   if (s.n_light > 0) {
     float lu1, lu2, lr;
-    uniform3(stream_id(seed, sample, bounce_idx, TAG_LIGHT_U), row, col, lu1, lu2, lr);
+    draw3<STRIP>(stream_id(seed, sample, bounce_idx, TAG_LIGHT_U), row, col, lu1, lu2, lr);
     did_nee = v.is_matte && !v.emissive;
-    if (did_nee) {
+    if (did_nee && (STRIP & STRIP_NO_NEE) == 0) {
       int lidx = min((int)(lr * (float)s.n_light), s.n_light - 1);
       const int* l = s.light + 3 * lidx;
       int loff = obj_off(s, __ldg(l + 1));
@@ -952,7 +978,9 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
       // one shadow ray toward the sample
       v.dist = length(v.to_l);
       v.wsh = v.to_l * (F(1.0) / fmaxf(v.dist, F(1e-12)));
-      bool occ = occluded<ALL, CULL>(s, h.p + n * F(1e-4), v.wsh, v.dist * F(1.0 - 1e-3));
+      bool occ = false;
+      if constexpr ((STRIP & STRIP_NO_SHADOW) == 0)
+        occ = occluded<ALL, CULL>(s, h.p + n * F(1e-4), v.wsh, v.dist * F(1.0 - 1e-3));
       V3 direct = v.rad * (occ ? 0.f : F(1.0));
       v.wl_local = world_to_local(v.wsh, n, ss, ts);
       bool lit = wo.z * v.wl_local.z > F(1e-5);

@@ -16,8 +16,8 @@ Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; it never falls back from one to the other.
 `render_block.launches`, `render_grad_block.launches` (K2, launched by
 `render_grad_rows`) and `reduce_grad_rows.launches` count kernel launches.
-K1 is built for eight scene kinds (`render_block_kernel<ALL, CULL, MATS>`)
-and K2 for two (`render_grad_kernel<CAP, MATS>`); the table says which a
+K1 is built for eight scene kinds (`render_block_kernel<ALL, CULL, MATS,
+0>`, `csrc/render_block.cuh`; the last argument strips no phase) and K2 for two (`render_grad_kernel<CAP, MATS>`); the table says which a
 scene is.
 
 `render_image_fast` / `render_tile_fast` are the JAX package's

@@ -24,6 +24,11 @@ from .. import constants as C
 
 H100_FP32_FLOPS = 67e12
 H100_BYTES_PER_S = 3.35e12
+# The SFU (rsqrt, sin, cos, exp2, log2; MUFU): 16 results per SM per clock
+# on the H100's 132 SMs (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0); its rate is that times the SM clock.
+H100_SMS = 132
+SFU_PER_SM_CLOCK = 16
 
 # t-only intersection test per object, by category (path.cuh `object_t`),
 # without what depends on the object alone (OBJECT_OPS)
@@ -75,6 +80,21 @@ NEE_OPS = 100
 LIGHT_OPS = 20
 # pixel jitter to a normalised camera ray, and the sample's sum
 CAMERA_OPS = 30
+# K5a (csrc/profile.cu `isect_only_kernel`), per path-bounce beyond the t
+# tests and the winner's hit record: the facing test (a dot and a
+# comparison), the reflection (a dot, 2·, n·s, a subtraction), its
+# normalisation (a dot, a max, a sqrt, a divide, 3 multiplies), the next
+# origin (3 multiplies, 3 adds) and the sum of t
+ISECT_BOUNCE_OPS = 6 + 12 + 11 + 6 + 1
+# K5b/K5c (`fma_mix`, `integrator_mix`), per element-iteration: FP32
+# operations under the FLOP convention (a fused mul-add 2; for
+# integrator_mix two of each of mul, add, max, compare, mul, mul, |x|, add;
+# selects not counted), SFU operations (rsqrt), and the TPU tool's own count
+# (tools/profile_megakernel.py:602-603, a mul-add 1)
+MIX_OPS = {"fma": dict(fp32=16, sfu=0, tpu=8),
+           "integrator_mix": dict(fp32=16, sfu=2, tpu=10)}
+# K5c: independent chains per element
+ILP = 8
 # K2: the adjoint of one hit bounce beyond its forward, by winner category
 # (adjoint.cuh `bounce_adj`, shape adjoints), and of the camera
 # (metal and glass: three times their forward, what a reverse sweep of the
@@ -194,3 +214,46 @@ def live_ops(params, static, height: int, width: int, spp: int, seed,
     k2 = k1 + adj * scale + ADJ_CAMERA_OPS * pixels \
         + float(sum(OBJECT_ADJ_OPS.get(c, 0) for c in cats))
     return k1, k2
+
+
+def isect_only_ops(params, static, height: int, width: int, spp: int,
+                   max_bounces: int, row0: int = 0,
+                   image_height: int = None) -> float:
+    """K5a's FP32 operations on these inputs: every path runs every bounce
+    (no early exit) and tests every object (no cull); a hit adds its
+    winner's record; each sample repeats the same rays, so one sample's
+    count is scaled by spp, and the camera ray is computed once per
+    pixel."""
+    from ..ops.cuda.profile import isect_only_plain
+    tally = []
+    with torch.no_grad():
+        isect_only_plain(params.detach(), static, height, width, 1,
+                         max_bounces, row0, image_height, tally=tally)
+    cats = static.object_categories
+    tests = float(sum(T_OPS[c] for c in cats))
+    ops = 0.0
+    for obj, valid in tally:
+        cat = torch.tensor(cats, dtype=torch.long,
+                           device=obj.device)[obj.long().clamp(min=0)]
+        ops += (tests + ISECT_BOUNCE_OPS) * obj.numel() + float(
+            (_table(HIT_OPS, cat)[cat] * valid).sum())
+    once = float(sum(OBJECT_OPS.get(c, 0) for c in cats))
+    return ops * spp + CAMERA_OPS * height * width + once
+
+
+def alu_bound_ms(mix: str, elem_iters: float, sm_clock_mhz: float,
+                 chains: int = 1) -> dict:
+    """K5b's (or, with `chains`=ILP, K5c's) least time for `elem_iters`
+    element-iterations of `mix`: the larger of its FP32 operations over
+    H100_FP32_FLOPS and its SFU operations over the SFU's rate at
+    `sm_clock_mhz`."""
+    m = MIX_OPS[mix]
+    n = elem_iters * chains
+    fp32_ms = m["fp32"] * n / H100_FP32_FLOPS * 1e3
+    sfu_ms = m["sfu"] * n / (H100_SMS * SFU_PER_SM_CLOCK
+                             * sm_clock_mhz * 1e6) * 1e3
+    return {"bound_ms": max(fp32_ms, sfu_ms), "bound_by": "operations",
+            "pipe": "sfu" if sfu_ms > fp32_ms else "fp32",
+            "fp32_ms": fp32_ms, "sfu_ms": sfu_ms,
+            "fp32_flops": m["fp32"] * n, "sfu_ops": m["sfu"] * n,
+            "tpu_ops": m["tpu"] * n}

@@ -142,15 +142,46 @@ def test_ctypes_bindings_match_the_c_entries():
     import ctypes
     import re
     from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.ops.cuda import profile as pf
     csrc = os.path.join(os.path.dirname(build.__file__), "..", "csrc")
     for source, name, argtypes in (
             ("megakernel.cu", "sail_render_block", mk.K1_ARGTYPES),
             ("megakernel_grad.cu", "sail_render_grad_block", mk.K2_ARGTYPES),
             ("megakernel_grad.cu", "sail_reduce_grad_rows",
-             mk.REDUCE_ARGTYPES)):
+             mk.REDUCE_ARGTYPES),
+            ("profile.cu", "sail_isect_only", pf.ISECT_ARGTYPES),
+            ("profile.cu", "sail_alu_peak", pf.ALU_ARGTYPES),
+            ("profile.cu", "sail_alu_peak_ilp8", pf.ALU_ILP8_ARGTYPES),
+            ("profile.cu", "sail_render_block_stripped",
+             pf.STRIPPED_ARGTYPES)):
         with open(os.path.join(csrc, source)) as f:
             text = f.read()
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1)
         kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
                  for p in params.split(",")]
         assert kinds == argtypes, name
+
+
+def test_profile_constants_match_the_source():
+    """The strip bits (path.cuh STRIP_*) and the mixes (profile.cu MIX_*)
+    the wrappers pass, against the sources; profile.cu hashes path.cuh, and
+    it and megakernel.cu hash K1's kernel (render_block.cuh)."""
+    import re
+    from sail_tpu_torch.ops.cuda import profile as pf
+    with open(os.path.join(build.CSRC_DIR, "path.cuh")) as f:
+        strips = dict(re.findall(r"STRIP_(\w+) = (\d+)", f.read()))
+    assert {k.lower(): int(v) for k, v in strips.items()} == {
+        "const_rng": pf.STRIPS["const_rng"],
+        "const_texture": pf.STRIPS["const_texture"],
+        "no_shadow": pf.STRIPS["no_shadow_scan"],
+        "no_nee": pf.STRIPS["no_nee"]}
+    with open(os.path.join(build.CSRC_DIR, "profile.cu")) as f:
+        mixes = dict(re.findall(r"MIX_(\w+) = (\d+)", f.read()))
+    assert {k.lower(): int(v) for k, v in mixes.items()} == {
+        "fma": pf.MIXES["fma"], "integrator": pf.MIXES["integrator_mix"]}
+    assert "path.cuh" in {os.path.basename(p)
+                          for p in build.sources("profile")}
+    # the stripped builds are K1's own kernel template, not a copy of it
+    for name in ("megakernel", "profile"):
+        assert "render_block.cuh" in {os.path.basename(p)
+                                      for p in build.sources(name)}

@@ -91,3 +91,51 @@ def test_live_ops_counts_the_render_and_scales_a_row_stride():
     half = opcount.live_ops(params, static, 8, 8, 1, 0, 2, row0=4,
                             image_height=16, row_step=2)
     assert half[0] == pytest.approx(full[0], rel=0.25)
+
+
+@pytest.mark.parametrize("name", ["cornell_mirror", "material_demo_open"])
+def test_isect_only_ops_per_path_bounce(name):
+    """K5a's count: every path runs every bounce and tests every object;
+    a path-bounce costs its tests and the reflection, and a hit its
+    winner's record on top; the samples repeat one sample's work."""
+    params, static = getattr(scenes, name)().pack()
+    fixed = opcount.CAMERA_OPS * 64 + sum(
+        opcount.OBJECT_OPS.get(c, 0) for c in static.object_categories)
+    one, three = (opcount.isect_only_ops(params, static, 8, 8, spp, 2)
+                  - fixed for spp in (1, 3))
+    assert three == pytest.approx(3 * one)
+    floor = sum(opcount.T_OPS[c] for c in static.object_categories) \
+        + opcount.ISECT_BOUNCE_OPS
+    per = one / (64 * 2)
+    assert floor <= per <= floor + max(opcount.HIT_OPS.values())
+
+
+def test_alu_bound_is_the_slower_pipe():
+    n = 1e9
+    fma = opcount.alu_bound_ms("fma", n, 1980.0)
+    assert fma["pipe"] == "fp32" and fma["sfu_ms"] == 0
+    assert fma["bound_ms"] == pytest.approx(16 * n / 67e12 * 1e3)
+    mix = opcount.alu_bound_ms("integrator_mix", n, 1980.0)
+    assert mix["pipe"] == "sfu"
+    assert mix["bound_ms"] == pytest.approx(2 * n / (132 * 16 * 1980e6) * 1e3)
+    assert opcount.alu_bound_ms("integrator_mix", n, 1980.0, chains=8)[
+        "bound_ms"] == pytest.approx(8 * mix["bound_ms"])
+
+
+def test_no_shadow_scan_bound_keeps_the_light_sample(monkeypatch):
+    """With the shadow scan stripped the build still samples the light: the
+    count lies between the full one and the one with no NEE, and loses
+    exactly the light sample's NEE_OPS when those are set to 0."""
+    from sail_tpu_torch.ops.cuda import profile as pf
+    params, static = scenes.cornell_mirror().pack()
+
+    def k1(strip=None):
+        if strip is None:
+            return opcount.live_ops(params, static, 8, 8, 1, 0, 2)[0]
+        with pf.stripped(strip):
+            return opcount.live_ops(params, static, 8, 8, 1, 0, 2)[0]
+
+    full, no_shadow, no_nee = k1(), k1("no_shadow_scan"), k1("no_nee")
+    assert no_nee < no_shadow < full
+    monkeypatch.setattr(opcount, "NEE_OPS", 0)
+    assert k1("no_shadow_scan") == pytest.approx(no_nee, rel=1e-12)

@@ -103,3 +103,129 @@ def test_localise_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["grad_localise"])
     with pytest.raises(SystemExit, match="CUDA"):
         gl.main()
+
+
+# ------------------------------------------- the profiling path's tools ----
+
+def test_profile_sections_on_the_cpu(tmp_path):
+    """`profile_megakernel` with --device cpu: op_count and phases write
+    their keys, each stripped image differs from the full one, and the
+    JSON file holds what was printed."""
+    from sail_tpu_torch.tools import profile_megakernel as prof
+    out = tmp_path / "profile.json"
+    res = prof.main(["--device", "cpu", "--sections", "op_count,phases",
+                     "--size", "8", "--spp", "2", "--bounces", "2",
+                     "--iters", "1", "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    assert res["device"] == "cpu" and res["card"] is None
+    ops = res["sections"]["op_count"]
+    assert ops["k2_ops_per_lane_sample"] > ops["k1_ops_per_lane_sample"] > 0
+    assert ops["k5a_ops_per_path_bounce"] > 0
+    phases = res["sections"]["phases"]
+    for key in ("full_ms", "const_rng_ms", "const_texture_ms",
+                "no_shadow_scan_ms", "no_nee_ms", "intersect_only_ms",
+                "intersect_only_spp1_ms", "rng_cost_ms", "texture_cost_ms",
+                "shadow_scan_cost_ms", "nee_total_cost_ms"):
+        assert isinstance(phases[key], float), key
+    assert all(phases["stripped_differs_from_full"].values())
+
+
+def test_profile_vpu_peak_keys_on_the_cpu(monkeypatch):
+    """vpu_peak's entries under the JAX tool's keys, on the CPU at small
+    geometries (the card's take minutes of the plain version there)."""
+    from sail_tpu_torch.tools import profile_megakernel as prof
+    monkeypatch.setattr(prof, "ALU_CASES", [
+        (key, mix, (2, 8, 2, 3), chains)
+        for key, mix, _, chains in prof.ALU_CASES])
+    peak = prof.vpu_peak_section(torch.device("cpu"), iters=1)
+    assert set(peak) == {"sm_clock_max_mhz", "fma", "fma_tile8x512",
+                         "integrator_mix", "integrator_mix_tile8x512",
+                         "integrator_mix_tile8x512_ilp8"}
+    assert peak["fma"]["fp32_flops"] == 2 * peak["fma"]["ops_counted"]
+    assert peak["integrator_mix_tile8x512_ilp8"]["geometry"]["chains"] == 8
+
+
+def test_profile_without_a_card_raises(monkeypatch):
+    from sail_tpu_torch.tools import profile_megakernel as prof
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        prof.main([])
+
+
+def test_determinism_check_passes_on_the_cpu(tmp_path):
+    from sail_tpu_torch.tools import determinism_check as det
+    res = det.main(["--device", "cpu", "--size", "16", "--spp", "4",
+                    "--bounces", "2", "--out", str(tmp_path / "d.json")])
+    assert res["all_pass"], res
+    assert {f"tiling_rows{r}_bit_identical" for r in det.TILE_ROWS} <= set(res)
+    assert 0 < res["chunking_allclose_rel"] < det.CHUNK_RTOL
+
+
+def test_occupancy_matches_jax_alive_fractions():
+    """occupancy_study's fractions against the JAX package's
+    `alive_fractions` on the same scene parameters, rays and noise (the
+    mean over samples): equal but for at most one path in 8²·2 (XLA:CPU's
+    fused multiply-adds may move a ray across an edge)."""
+    import jax.numpy as jnp
+    import numpy as np
+    from sail_tpu import scenes as jscenes
+    from sail_tpu.core import rng as jrng
+    from sail_tpu.core.camera import rays_for_pixels as jax_rays
+    from sail_tpu.render.integrator import alive_fractions
+    from sail_tpu_torch.scene.bridge import (params_from_jax_leaves,
+                                             static_from_jax)
+    from sail_tpu_torch.tools import occupancy_study as occ
+    import jax
+    size, spp, bounces = 8, 2, 3
+    for _, name in occ.CONFIGS:
+        packed, static = getattr(jscenes, name)().pack()
+        params = params_from_jax_leaves([np.asarray(x)
+                                         for x in jax.tree.leaves(packed)])
+        got = [t.numpy() for t in occ.fractions(
+            params, static_from_jax(static), size, spp, bounces)]
+        ii = jnp.broadcast_to(jnp.arange(size, dtype=jnp.int32)[:, None],
+                              (size, size))
+        jj = ii.T
+        want = np.zeros((2, bounces))
+        for s in range(spp):
+            noise = jrng.pixel_noise(0, s, ii=ii, jj=jj)
+            jx, jy, _ = noise.uniform3(0, jrng.TAG_PIXEL_JITTER)
+            ro, rd = jax_rays(packed.camera, ii.astype(jnp.float32),
+                              jj.astype(jnp.float32), size, size, jx, jy)
+            want += np.asarray(alive_fractions(packed, static, ro, rd, noise,
+                                               bounces, occ.WEAK))
+        want /= spp
+        np.testing.assert_allclose(np.stack(got), want, rtol=0,
+                                   atol=1.0 / (size * size * spp))
+        assert got[0][0] > 0
+
+
+def test_occupancy_bounds():
+    from sail_tpu_torch.tools import occupancy_study as occ
+    assert occ.compaction_bounds([1.0, 1.0], [0.0, 0.0]) == (1.0, 1.0)
+    bound, rr = occ.compaction_bounds([0.5, 0.25, 0.1], [0.25, 0.0, 0.0])
+    assert bound == 3 / 1.75 and rr == 3 / 1.5
+
+
+def test_check_finite_names_the_nan_leaf():
+    from sail_tpu_torch.utils import sanitize
+    tree = {"img": Vec3(torch.ones(2), torch.tensor([1.0, float("nan")]),
+                        torch.zeros(2)),
+            "grad": torch.zeros(3), "ids": torch.arange(3)}
+    with pytest.raises(FloatingPointError, match=r"^scene\.img\.y: 1 "):
+        sanitize.check_finite(tree, "scene")
+    found = sanitize.check_finite(tree, "scene", raise_error=False)
+    assert found == [("scene.img.y", 1)]
+    assert sanitize.check_finite({"ok": torch.ones(2)}) == []
+
+
+def test_assert_bit_equal_and_sanitized():
+    from sail_tpu_torch.utils import sanitize
+    a = {"x": torch.tensor([0.0, 1.0])}
+    sanitize.assert_bit_equal(a, {"x": torch.tensor([0.0, 1.0])}, "t")
+    with pytest.raises(AssertionError, match=r"t\.x: 1 differing"):
+        sanitize.assert_bit_equal(a, {"x": torch.tensor([-0.0, 1.0])}, "t")
+    x = torch.tensor([-1.0], requires_grad=True)
+    with pytest.raises(RuntimeError, match="nan|NaN"):
+        with sanitize.sanitized():
+            torch.sqrt(x).sum().backward()
