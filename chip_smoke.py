@@ -5,10 +5,13 @@
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device and build: torch, CUDA, nvcc, the card's name and power limit;
      builds K1 (csrc/megakernel.cu, eight scene kinds), K2
-     (csrc/megakernel_grad.cu, six builds) and the profiling kernels
+     (csrc/megakernel_grad.cu: the gradient in shared memory for two scene
+     kinds, the kind without materials also at two blocks per SM, and in
+     local arrays of three sizes for two kinds), the profiling kernels
      (csrc/profile.cu: K5a, K5b, K5c, K1 with each of four phases
-     stripped), one nvcc each, started together, and reports each kernel's
-     registers, stack and spills (nvcc -Xptxas -v).
+     stripped) and K2's stripped builds (csrc/profile_grad.cu), one nvcc
+     each, started together, and reports each kernel's registers, stack,
+     spills and static shared memory (nvcc -Xptxas -v).
   2. kernel vs plain on the card: K1 against its plain torch version on the
      same CUDA tensors (cornell_matte, cornell_mirror, a row tile, a ragged
      block with another seed, and open_lights: misses, Oren-Nayar, an
@@ -84,6 +87,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      stripped image must differ from the full one, printed as one JSON
      line; then tools/determinism_check.py at 256² x 8 x 5, which must
      pass, and tools/occupancy_study.py at 256² x 4 x 5, one JSON line each.
+  9. K2's phase split: its two stripped builds (the forward sweep alone;
+     the sweep and the replay of the recorded decisions without the
+     adjoint) against their plain versions at 64² x 4 x 3 and on a
+     full-width row tile at 1024² x 64 x 5; then, counted, K2 and both
+     stripped builds on config 2 at 1024² x {4, 16, 64} spp x 5 bounces
+     (ms and ms per sample), printed as one JSON line with K2's resources
+     (-Xptxas -v).
 Every kernel's bound is computed from this run's inputs: the FP32
 operations the plain version's masks say these paths need
 (sail_tpu_torch/utils/opcount.py) over 67 TFLOP/s, or the bytes over
@@ -220,6 +230,15 @@ def bound(params, static, height: int, width: int, spp: int, bounces: int,
     nbytes = small + 12 * height * width + (4 * params.numel() if grad else 0)
     ms, by = opcount.bound_ms(k2 if grad else k1, nbytes)
     return {"bound_ms": ms, "bound_by": by, "ops": k2 if grad else k1}
+
+
+def k2_build(n_params: int, static) -> str:
+    """K2's build for a scene: "shared" (the gradient in shared memory) or
+    "local <cap>", and its blocks per SM, as the C entry chooses them."""
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    b = mk.grad_build(n_params)
+    return (("shared" if b == mk.SHARED_GRAD else f"local {b}")
+            + f", {mk.grad_launch_bound(n_params, static)} blocks/SM")
 
 
 def kernel_row(name: str, source: str, replaces: str, launches: int,
@@ -407,11 +426,12 @@ def gradient_path(dev, card: str) -> list:
     shape = f"cornell_mirror {W}x{H} spp{SPP} b{BOUNCES}"
     return [
         kernel_row("K2 render_grad_block (backward megakernel)",
-                   "sail_tpu_torch/csrc/megakernel_grad.cu",
+                   "sail_tpu_torch/csrc/megakernel_grad.cu + render_grad.cuh "
+                   "+ adjoint.cuh",
                    "sail_tpu/ops/pallas/megakernel.py:262", launches[1],
                    grad_abs, k2_ms, k2_plain_ms, k2_bound, shape,
                    rel_linf=grad_err, plain_shape=tile, tile_ms=tile_ms,
-                   localised=where),
+                   localised=where, build=k2_build(params.numel(), static)),
         kernel_row("K2 reduce_grad_rows (K2's cross-block sum)",
                    "sail_tpu_torch/csrc/megakernel_grad.cu",
                    "sail_tpu/ops/pallas/megakernel.py:459", launches[2],
@@ -604,7 +624,8 @@ def many_gradients(dev, card: str) -> list:
         torch.cuda.synchronize()
         summary = grad_check(f"{name} {size}x{size} spp1 b{BOUNCES} "
                              f"({params.numel()} params, K2 build "
-                             f"{mk.grad_cap(params.numel())})", got, want,
+                             f"{k2_build(params.numel(), static)})", got,
+                             want,
                              static)[0]
         if not torch.equal(got, again):
             raise AssertionError(f"K2 is not repeatable: {summary}")
@@ -701,7 +722,8 @@ def many_gradients(dev, card: str) -> list:
                 plain_shape=k1_shape, tile_ms=k1_tile_ms))
         steps.append(
             f"spheres{n} ({params.numel()} params, K2 build "
-            f"{mk.grad_cap(params.numel())}) {W}x{H} spp{spp} b{BOUNCES}: "
+            f"{k2_build(params.numel(), static)}) {W}x{H} spp{spp} "
+            f"b{BOUNCES}: "
             f"{launches[0]} K1, {launches[1]} K2, {launches[2]} reduce launch"
             f", loss {float(loss.detach()):.6g}, fwd+bwd {step_ms:.1f} ms "
             f"(median of {TIMED_RUNS}), K2 {k2_ms:.1f} ms, the step's "
@@ -727,11 +749,13 @@ def many_gradients(dev, card: str) -> list:
         rows.append(kernel_row(
             f"K2 render_grad_block ({n} spheres, "
             f"{mk.grad_cap(params.numel())}-parameter build)",
-            "sail_tpu_torch/csrc/megakernel_grad.cu + adjoint.cuh",
+            "sail_tpu_torch/csrc/megakernel_grad.cu + render_grad.cuh + "
+            "adjoint.cuh",
             "sail_tpu/ops/pallas/megakernel.py:262", launches[1], abs_err,
             k2_ms, plain_ms, b, path, rel_linf=err,
             launches_counted_on=f"the fwd+bwd step on {n} spheres",
-            plain_shape=shape, tile_ms=tile_ms, localised=where))
+            plain_shape=shape, tile_ms=tile_ms, localised=where,
+            build=k2_build(params.numel(), static)))
     print(f"phase 6 gradients, every shape and many objects: K2 vs plain: "
           + "; ".join(results) + " | steps render_image_fast -> mean(x+y+z)"
           " -> backward: " + " | ".join(steps) + f" | {card}", flush=True)
@@ -914,10 +938,16 @@ def materials_path(dev, card: str) -> list:
                 for _ in range(3)))
     c_args = (c_params.to(dev), c_static, gc, size, size, spp, 0, 0, bounces)
     c_got = mk.render_grad_block(*c_args)
+    c_again = mk.render_grad_block(*c_args)
     c_want = mk.render_grad_block_plain(*c_args)
     c_summary = grad_check(f"material_check {size}x{size} spp{spp} "
-                           f"b{bounces} ({c_params.numel()} params)", c_got,
-                           c_want, c_static)[0]
+                           f"b{bounces} ({c_params.numel()} params, K2 build "
+                           f"{k2_build(c_params.numel(), c_static)})", c_got,
+                           c_want,
+                           c_static)[0]
+    if not torch.equal(c_got, c_again):
+        raise AssertionError(f"K2 is not repeatable: {c_summary}")
+    c_summary += ", bit-identical on repeat"
     print(f"phase 7 materials and early exit: K1 vs plain: "
           + "; ".join(results) + " | " + " | ".join(paths) + f" | step "
           f"render_image_fast material_demo {W}x{H} spp{SPP} b{BOUNCES} -> "
@@ -933,11 +963,13 @@ def materials_path(dev, card: str) -> list:
           f"plain: {c_summary} | {card}", flush=True)
     rows.append(kernel_row(
         "K2 render_grad_block (material_demo: metal, glass, checkerboard)",
-        "sail_tpu_torch/csrc/megakernel_grad.cu + adjoint.cuh + bsdf.cuh",
+        "sail_tpu_torch/csrc/megakernel_grad.cu + render_grad.cuh + "
+        "adjoint.cuh + bsdf.cuh",
         "sail_tpu/ops/pallas/megakernel.py:262", launches[1], abs_err, k2_ms,
         plain_ms, b, f"material_demo {W}x{H} spp{SPP} b{BOUNCES}",
         rel_linf=err, launches_counted_on="the fwd+bwd step on "
-        "material_demo", plain_shape=shape, tile_ms=tile_ms, localised=where))
+        "material_demo", plain_shape=shape, tile_ms=tile_ms, localised=where,
+        build=k2_build(params.numel(), static)))
     return rows
 
 
@@ -1135,6 +1167,130 @@ def profiling_path(dev, card: str) -> list:
     return rows
 
 
+def k2_phases(dev, card: str) -> list:
+    """Phase 9: K2's phase split.  Its two stripped builds (the forward
+    sweep alone; the sweep and the replay without the adjoint), each
+    against its plain version; then, as the section's path, K2 and both
+    stripped builds on config 2 at 1024² x {4, 16, 64} spp x 5 bounces;
+    printed as one JSON line with K2's resources.  Returns the two stripped
+    builds' JSON entries."""
+    from sail_tpu_torch.core.vecmath import Vec3
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.ops.cuda import profile as pf
+    from sail_tpu_torch.utils import build, opcount
+
+    params, static = scene_of("cornell_mirror").pack()
+    params = params.to(dev)
+    rng = np.random.default_rng(3)
+    results = []
+
+    def stripped_check(label, got, want, strip):
+        """Columns 0 and 2 (each block's g · radiance, summed in other
+        orders) within GRAD_TOL of the largest; column 1 (replayed states
+        that differ from the recorded ones) and the rest exactly 0."""
+        cols = [0, 2] if strip == "no_adjoint" else [0]
+        err = float((got[:, cols] - want[:, cols]).abs().max()
+                    / want[:, cols].abs().max())
+        rest = torch.ones(got.shape[1], dtype=torch.bool, device=dev)
+        rest[cols] = False
+        zero = bool((got[:, rest] == 0).all())
+        results.append(f"K2 {strip} {label}: rel Linf {err:.3g} (columns "
+                       f"{cols}), the other columns zero {zero}, mean "
+                       f"{float(got[:, 0].mean()):.6g}")
+        if not (err < GRAD_TOL and zero and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"a stripped K2 build: {results[-1]}")
+        return err, float((got - want).abs().max())
+
+    # the stripped builds at 64² and on a full-width row tile of the path
+    size, spp, bounces = STRIP_CHECK
+    g = Vec3(*(torch.from_numpy(rng.uniform(0.1, 1.0, (size, size))
+                                .astype(np.float32)).to(dev)
+               for _ in range(3)))
+    args = (params, static, g, size, size, spp, 0, 0, bounces)
+    for strip in pf.GRAD_STRIPS:
+        stripped_check(f"cornell_mirror {size}x{size} spp{spp} b{bounces}",
+                       pf.render_grad_stripped(strip, *args),
+                       pf.render_grad_stripped_plain(strip, *args), strip)
+    t_rows, t_row0 = K1_TILE
+    gt = Vec3(*(torch.full((t_rows, W), 1.0 / (H * W * SPP), device=dev),)
+              * 3)
+    t_args = (params, static, gt, t_rows, W, SPP, 0, 0, BOUNCES, t_row0, H)
+    tile = (f"cornell_mirror rows {t_row0}-{t_row0 + t_rows - 1} of {H} x "
+            f"{W} spp{SPP} b{BOUNCES}")
+    tiles = {}
+    for strip in pf.GRAD_STRIPS:
+        want, plain_ms = cuda_ms(pf.render_grad_stripped_plain, strip,
+                                 *t_args)
+        got = pf.render_grad_stripped(strip, *t_args)
+        err, abs_err = stripped_check(tile, got, want, strip)
+        tiles[strip] = (abs_err, plain_ms,
+                        median_ms(pf.render_grad_stripped, strip, *t_args))
+    print("phase 9 checks: " + "; ".join(results), flush=True)
+
+    # -- the section's path: K2 and its stripped builds at 4, 16, 64 spp ---
+    mk.render_grad_block.launches = 0
+    pf.render_grad_stripped.launches = 0
+    split = {}
+    for n in (4, 16, SPP):
+        gn = Vec3(*(torch.full((H, W), 1.0 / (H * W * n), device=dev),) * 3)
+        a = (params, static, gn, H, W, n, 0, 0, BOUNCES)
+        ms = {"full": median_ms(mk.render_grad_block, *a)}
+        for strip in pf.GRAD_STRIPS:
+            ms[strip] = median_ms(pf.render_grad_stripped, strip, *a)
+        split[n] = {**{f"{k}_ms": v for k, v in ms.items()},
+                    **{f"{k}_ms_per_sample": v / n for k, v in ms.items()},
+                    "replay_ms": ms["no_adjoint"] - ms["forward_only"],
+                    "adjoint_ms": ms["full"] - ms["no_adjoint"]}
+    torch.cuda.synchronize()
+    launches = {"render_grad_block": mk.render_grad_block.launches,
+                "render_grad_stripped": pf.render_grad_stripped.launches}
+    usage = {**{k: v for k, v in build.resource_usage(
+        "megakernel_grad").items() if k.startswith("render_grad_kernel")},
+        **build.resource_usage("profile_grad")}
+    n_par = params.numel()
+    threads = mk.GRAD_BLOCK[0] * mk.GRAD_BLOCK[1]
+    label = f"K2 phases (cornell_mirror {W}x{H} spp 4/16/{SPP} b{BOUNCES})"
+    out = {"k2_phases": {
+        "config": f"cornell_mirror {W}x{H} b{BOUNCES}, {n_par} params, K2 "
+                  f"build {k2_build(n_par, static)}",
+        "split": split, "resources": usage,
+        "dynamic_smem_bytes": {"shared build": (threads + threads // 32)
+                               * n_par * 4,
+                               "local builds": threads // 32 * n_par * 4},
+        "launches": launches, "card": card}}
+    print(json.dumps(out), flush=True)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"K2's phase section made {launches} launches")
+
+    # -- the kernels' rows: bounds from these inputs ------------------------
+    shape = f"cornell_mirror {W}x{H} spp{SPP} b{BOUNCES}"
+    k1_b = bound(params, static, H, W, SPP, BOUNCES, samples=1, row_step=32)
+    # a stripped build's output (each block's g · radiance) needs one
+    # forward: K1's operations, K2's bytes
+    small = 4 * (n_par + len(mk.scene_table(static).ints))
+    rows_bytes = 4 * n_par * (W // 16) * (H // 16)
+    s_ms, s_by = opcount.bound_ms(k1_b["ops"], small + 12 * H * W
+                                  + rows_bytes)
+    rows = []
+    for strip in pf.GRAD_STRIPS:
+        abs_err, plain_ms, tile_ms = tiles[strip]
+        rows.append(kernel_row(
+            f"K2 render_grad_stripped({strip!r})",
+            "sail_tpu_torch/csrc/profile_grad.cu + render_grad.cuh + "
+            "adjoint.cuh", "sail_tpu/ops/pallas/megakernel.py:262 (K2's "
+            "phases)", launches["render_grad_stripped"], abs_err,
+            split[SPP][f"{strip}_ms"], plain_ms,
+            {"bound_ms": s_ms, "bound_by": s_by}, shape,
+            launches_counted_on=label, plain_shape=tile, tile_ms=tile_ms))
+    print(f"phase 9 K2 phases: " + ", ".join(
+        f"spp{n}: full {v['full_ms']:.2f} ms ({v['full_ms_per_sample']:.3f} "
+        f"ms/sample), forward_only {v['forward_only_ms']:.2f}, replay "
+        f"{v['replay_ms']:.2f}, adjoint {v['adjoint_ms']:.2f}"
+        for n, v in split.items()) + f" | launches {launches} | {card}",
+        flush=True)
+    return rows
+
+
 def kernel_vs_plain(dev, card: str) -> list:
     """Phase 2: K1 against its plain version on the card, and the goldens.
     Returns no kernel entry (phase 3 gives K1's)."""
@@ -1268,21 +1424,30 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()
     nvcc = next((ln for ln in nvcc if "release" in ln), nvcc[-1])
     t0 = time.perf_counter()
-    sources = ("megakernel", "megakernel_grad", "profile")
+    sources = ("megakernel", "megakernel_grad", "profile", "profile_grad")
     build.build(*sources)   # one nvcc each, started together
     build_s = time.perf_counter() - t0
-    usage = {k: v for src in sources
+    usage = {f"{k} ({src})": v for src in sources
              for k, v in build.resource_usage(src).items()}
     flags = ("false", "true")
-    for kernel in (*(f"render_block_kernel<{a}, {c}, {m}, 0>" for a in flags
-                     for c in flags for m in flags), "reduce_grad_rows_kernel",
-                   *(f"render_grad_kernel<{cap}, {m}>" for cap in mk.GRAD_CAPS
+    for kernel in (*(f"render_block_kernel<{a}, {c}, {m}, 0> (megakernel)"
+                     for a in flags for c in flags for m in flags),
+                   "reduce_grad_rows_kernel (megakernel_grad)",
+                   *(f"render_grad_kernel<{mk.SHARED_GRAD}, {a}, {m}, 0, {b}>"
+                     f" (megakernel_grad)" for a, m, b in (
+                         ("false", "false", 2), ("true", "false", 1),
+                         ("true", "true", 1))),
+                   *(f"render_grad_kernel<{cap}, true, {m}, 0, 1> "
+                     f"(megakernel_grad)" for cap in mk.GRAD_CAPS
                      for m in flags),
-                   *(f"isect_only_kernel<{a}>" for a in flags),
-                   "alu_peak_kernel<0>", "alu_peak_kernel<1>",
-                   "alu_peak_ilp8_kernel",
-                   *(f"render_block_kernel<false, false, false, {b}>"
-                     for b in (1, 2, 4, 8))):
+                   *(f"isect_only_kernel<{a}> (profile)" for a in flags),
+                   "alu_peak_kernel<0> (profile)",
+                   "alu_peak_kernel<1> (profile)",
+                   "alu_peak_ilp8_kernel (profile)",
+                   *(f"render_block_kernel<false, false, false, {b}> "
+                     f"(profile)" for b in (1, 2, 4, 8)),
+                   *(f"render_grad_kernel<{mk.SHARED_GRAD}, false, false, "
+                     f"{st}, 2> (profile_grad)" for st in (1, 3))):
         if kernel not in usage:
             raise AssertionError(f"no -Xptxas -v report for {kernel}")
     print(card)
@@ -1292,7 +1457,8 @@ def main() -> int:
           f"built in {build_s:.1f} s"
           + "".join(f" | {k}: {u['registers']} registers, {u['stack']} B "
                     f"stack, {u['spill_stores']}/{u['spill_loads']} B spill "
-                    f"stores/loads" for k, u in sorted(usage.items())),
+                    f"stores/loads, {u['smem']} B static smem"
+                    for k, u in sorted(usage.items())),
           flush=True)
 
     kernels = []
@@ -1300,7 +1466,7 @@ def main() -> int:
     for phase, fn in ((2, kernel_vs_plain), (3, main_path),
                       (4, gradient_path), (5, many_objects),
                       (6, many_gradients), (7, materials_path),
-                      (8, profiling_path)):
+                      (8, profiling_path), (9, k2_phases)):
         t1 = time.perf_counter()
         kernels += fn(dev, card)
         seconds[phase] = time.perf_counter() - t1

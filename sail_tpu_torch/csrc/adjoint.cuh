@@ -1,12 +1,15 @@
 // The hand-written adjoint of one path sample, for K2 (megakernel_grad.cu).
 //
 // `sample_grad` adds d(g . radiance)/d(params) of one sample of one pixel to
-// a per-thread gradient array G (the flat parameter vector's layout): a
+// a per-thread gradient G (the flat parameter vector's layout, `Grad`): a
 // forward sweep with K1's code (path.cuh `bounce`) that stores each
-// bounce's input state; then, from the last bounce to the first, the bounce
-// is run again from its stored state (recording every intermediate in a
-// `Bounce`) and its adjoint is applied; then the camera's adjoint.  This is
-// the TPU kernel's "remat" mode (sail_tpu/ops/pallas/megakernel.py:420-436).
+// bounce's input state and its two discrete decisions (the closest hit's
+// winner and the shadow ray's bit); then, from the last bounce to the first,
+// the bounce is replayed from its stored state and decisions (recording
+// every intermediate in a `Bounce`, without the closest-hit fold or the
+// shadow scan) and its adjoint is applied; then the camera's adjoint.  This
+// is the TPU kernel's "remat" mode (sail_tpu/ops/pallas/megakernel.py:
+// 420-436), less the two searches, whose results carry no cotangent.
 //
 // The rules are those of the plain version (torch autograd through
 // render/integrator.py), which are JAX's:
@@ -56,11 +59,24 @@ __device__ __forceinline__ void min_adj(float a, float b, float d, float& da, fl
 }
 __device__ __forceinline__ float sgn(float x) { return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f); }
 
-__device__ __forceinline__ void gadd(float* G, int i, float d) { G[i] += d; }
-__device__ __forceinline__ void gadd3(float* G, int i, V3 d) {
-  G[i] += d.x;
-  G[i + 1] += d.y;
-  G[i + 2] += d.z;
+// A thread's gradient: parameter i at p[i * STRIDE].  K2 keeps it either in
+// a local array (STRIDE 1) or in the thread's column of a block-wide array in
+// shared memory (p = base + thread index, STRIDE = the block's threads), so
+// the 32 lanes of a warp always add to 32 different banks.  Each slot has one
+// owner: no atomics, and the adds land in the same order either way.
+template <int STRIDE>
+struct Grad {
+  float* p;
+};
+template <int STRIDE>
+__device__ __forceinline__ float& gref(Grad<STRIDE> G, int i) { return G.p[i * STRIDE]; }
+template <int STRIDE>
+__device__ __forceinline__ void gadd(Grad<STRIDE> G, int i, float d) { gref(G, i) += d; }
+template <int STRIDE>
+__device__ __forceinline__ void gadd3(Grad<STRIDE> G, int i, V3 d) {
+  gref(G, i) += d.x;
+  gref(G, i + 1) += d.y;
+  gref(G, i + 2) += d.z;
 }
 
 // ---------------------------------------------------- vector adjoints ----
@@ -271,8 +287,9 @@ __device__ __forceinline__ void safe_div_adj(float num, float den, float d, floa
 
 // o = to_object(ro - pos), d = to_object(rd): cotangents of o and d onto ro,
 // rd and the object's position (offset `off`).
+template <class GradT>
 __device__ __forceinline__ void ray_to_object_adj(int off, V3 d_o, V3 d_d, V3& d_ro, V3& d_rd,
-                                                  float* G) {
+                                                  GradT G) {
   V3 dw = from_object(d_o);  // to_object's adjoint is from_object
   d_ro = d_ro + dw;
   gadd3(G, off, -dw);
@@ -287,9 +304,9 @@ __device__ __forceinline__ void ray_to_object_adj(int off, V3 d_o, V3 d_d, V3& d
 // is left out.  It recomputes the forward values with path.cuh's
 // expressions.
 
-template <bool UV>
+template <bool UV, class GradT>
 __device__ void sphere_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_ng,
-                               V3 d_dpdu, float d_u, float d_v, V3& d_ro, V3& d_rd, float* G) {
+                               V3 d_dpdu, float d_u, float d_v, V3& d_ro, V3& d_rd, GradT G) {
   V3 c = P3(s, off);
   float r = P(s, off + 3);
   V3 o = to_object(ro - c), d = to_object(rd);
@@ -342,8 +359,9 @@ __device__ void sphere_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3
 }
 
 // rect_frame(s, off): cotangents of ex, ey, n, ss, ts onto bmin and bmax.
+template <class GradT>
 __device__ void rect_frame_adj(int off, const RectFrame& f, V3 d_ex, V3 d_ey, V3 d_n, V3 d_ss,
-                               V3 d_ts, float* G) {
+                               V3 d_ts, GradT G) {
   cross_adj(f.n, f.ss, d_ts, d_n, d_ss);  // ts = cross(n, ss)
   // ss = ex * (1 / fmaxf(len_x, 1e-20)); len_x = length(ex)
   float mx = fmaxf(f.len_x, F(1e-20));
@@ -361,9 +379,9 @@ __device__ void rect_frame_adj(int off, const RectFrame& f, V3 d_ex, V3 d_ey, V3
   gadd3(G, off, -d_ext);
 }
 
-template <bool UV>
+template <bool UV, class GradT>
 __device__ void rect_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_ng, V3 d_dpdu,
-                             float d_u, float d_v, V3& d_ro, V3& d_rd, float* G) {
+                             float d_u, float d_v, V3& d_ro, V3& d_rd, GradT G) {
   RectFrame f = rect_frame(s, off);
   V3 w = ro - P3(s, off);
   V3 d_l = world_to_local(rd, f.n, f.ss, f.ts);
@@ -401,9 +419,9 @@ __device__ void rect_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d
 // A box's (cube, Cornell box) normal, tangent and wall colors are constant
 // where they are defined, so only p = ro + rd * t carries a cotangent: t is
 // the slab test's tnear where a cube is hit from outside, else its tfar.
-template <bool UV>
+template <bool UV, class GradT>
 __device__ void box_hit_adj(const Scene& s, int off, bool cube, V3 ro, V3 rd, V3 d_p, float d_u,
-                            float d_v, V3& d_ro, V3& d_rd, float* G) {
+                            float d_v, V3& d_ro, V3& d_rd, GradT G) {
   V3 bmin = P3(s, off), bmax = P3(s, off + 3);
   if (UV && cube && (d_u != 0.f || d_v != 0.f)) {  // box_uv: rel = safe_div(p - bmin, bmax - bmin)
     V3 p = ro + rd * cube_t(s, off, ro, rd);
@@ -469,8 +487,9 @@ __device__ void box_hit_adj(const Scene& s, int off, bool cube, V3 ro, V3 rd, V3
 // pos, ng = from_object(normalize(cross(dpdu, dpdv))), dpdu =
 // from_object((-2 pi q.y, 2 pi q.x, 0)).  Adds onto d_q and d_dpdv, and the
 // position's share to G.
+template <class GradT>
 __device__ void quadric_tail_adj(int off, V3 q, V3 dpdv, V3 d_p, V3 d_ng, V3 d_dpdu, V3& d_q,
-                                 V3& d_dpdv, float* G) {
+                                 V3& d_dpdv, GradT G) {
   gadd3(G, off, d_p);
   d_q = d_q + to_object(d_p);  // from_object's adjoint is to_object
   V3 dpdu = {F(-TWO_PI) * q.y, F(TWO_PI) * q.x, 0.f};
@@ -483,9 +502,9 @@ __device__ void quadric_tail_adj(int off, V3 q, V3 dpdv, V3 d_p, V3 d_ng, V3 d_d
 
 // cone / cylinder params: p[3], h, r.  t through the clipped quadratic; the
 // cone's dpdv through v = q.z / h.
-template <bool UV>
+template <bool UV, class GradT>
 __device__ void frustum_hit_adj(const Scene& s, int off, bool cone, V3 ro, V3 rd, V3 d_p, V3 d_ng,
-                                V3 d_dpdu, float d_u, float d_vt, V3& d_ro, V3& d_rd, float* G) {
+                                V3 d_dpdu, float d_u, float d_vt, V3& d_ro, V3& d_rd, GradT G) {
   float hh = P(s, off + 3), r = P(s, off + 4);
   V3 o, d;
   float t = cone ? cone_t(s, off, ro, rd, o, d) : cylinder_t(s, off, ro, rd, o, d);
@@ -551,9 +570,9 @@ __device__ void frustum_hit_adj(const Scene& s, int off, bool cone, V3 ro, V3 rd
 
 // disk params: p[3], r, inner_r.  The normal is constant; r and inner_r reach
 // the hit's v.
-template <bool UV>
+template <bool UV, class GradT>
 __device__ void disk_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_dpdu, float d_u,
-                             float d_v, V3& d_ro, V3& d_rd, float* G) {
+                             float d_v, V3& d_ro, V3& d_rd, GradT G) {
   V3 o = to_object(ro - P3(s, off)), d = to_object(rd);
   float t = -safe_div(o.z, d.z);  // |d.z| > 1e-12 on a hit
   gadd3(G, off, d_p);
@@ -584,10 +603,10 @@ __device__ void disk_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d
 
 // hyperboloid params: p[3], p1[3], p2[3], ah, ch.  dpdv turns with
 // phi = atan2 of the hit against the profile point pr = lerp(p1, p2, v).
-template <bool UV>
+template <bool UV, class GradT>
 __device__ void hyperboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_ng,
                                     V3 d_dpdu, float d_u, float d_vt, V3& d_ro, V3& d_rd,
-                                    float* G) {
+                                    GradT G) {
   V3 p1 = P3(s, off + 3), p2 = P3(s, off + 6);
   float ah = P(s, off + 9), ch = P(s, off + 10);
   V3 o, d;
@@ -654,9 +673,9 @@ __device__ void hyperboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_
 
 // paraboloid params: p[3], z0, z1, r.  zmin/zmax take JAX's tie rule; k and
 // dpdv read them.
-template <bool UV>
+template <bool UV, class GradT>
 __device__ void paraboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p, V3 d_ng,
-                                   V3 d_dpdu, float d_u, float d_v, V3& d_ro, V3& d_rd, float* G) {
+                                   V3 d_dpdu, float d_u, float d_v, V3& d_ro, V3& d_rd, GradT G) {
   float z0 = P(s, off + 3), z1 = P(s, off + 4), r = P(s, off + 5);
   V3 o, d;
   float t = paraboloid_t(s, off, ro, rd, o, d);
@@ -722,8 +741,9 @@ __device__ void paraboloid_hit_adj(const Scene& s, int off, V3 ro, V3 rd, V3 d_p
 // inputs are seeded DUAL_N at a time as tangents of a `Dual` run of the same
 // code, and each output tangent is contracted with its cotangent.  The
 // uniforms and the lobe choices carry none.
+template <class GradT>
 __device__ void material_adj(const Scene& s, const Bounce& v, V3 d_w, V3 d_wi, V3& d_wo, V3& d_sc,
-                             float* G) {
+                             GradT G) {
   constexpr int MAX_IN = 6 + MAX_MAT_PARAMS;
   const int n_in = 6 + material_params(v.mcat);
   float x[MAX_IN], d_in[MAX_IN];
@@ -765,8 +785,9 @@ __device__ void material_adj(const Scene& s, const Bounce& v, V3 d_w, V3 d_wi, V
 // d_sc onto the texture row's parameters and onto the hit's u and v.  The
 // checkerboards go through floor (no u, v cotangent), and Checkerboard's
 // colors are constants.
+template <class GradT>
 __device__ void texture_adj(const Scene& s, const Bounce& v, V3 d_sc, float& d_u, float& d_v,
-                            float* G) {
+                            GradT G) {
   const int off = v.tex_off;
   const float u = v.h.u, w = v.h.v;
   switch (v.tcat) {
@@ -814,9 +835,9 @@ __device__ void texture_adj(const Scene& s, const Bounce& v, V3 d_sc, float& d_u
 // cotangents of the output ro, rd, thr in d_ro, d_rd, d_thr and replaces them
 // with those of the input; adds the parameters' share to G.  MATS as in
 // path.cuh: without it the scene has only matte, mirror and uniform colors.
-template <bool MATS>
+template <bool MATS, bool ALL = true, class GradT>
 __device__ void bounce_adj(const Scene& s, const PathState& st, const Bounce& v, V3 g, V3& d_ro,
-                           V3& d_rd, V3& d_thr, float* G) {
+                           V3& d_rd, V3& d_thr, GradT G) {
   // e' = e + thr * contrib; thr' = thr * weight
   V3 d_contrib = g * st.thr;
   V3 d_weight = d_thr * st.thr;
@@ -924,6 +945,15 @@ __device__ void bounce_adj(const Scene& s, const PathState& st, const Bounce& v,
 
   const int cat = obj_cat(s, v.obj);
   const V3 ro = st.ro, rd = st.rd;
+  if constexpr (!ALL) {  // path.cuh's ALL: the benchmark scenes' three shapes
+    if (cat == SPHERE)
+      sphere_hit_adj<MATS>(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_u, d_v, d_ro, d_rd, G);
+    else if (cat == RECTANGLE)
+      rect_hit_adj<MATS>(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_u, d_v, d_ro, d_rd, G);
+    else
+      box_hit_adj<MATS>(s, v.off, false, ro, rd, d_p, d_u, d_v, d_ro, d_rd, G);
+    return;
+  }
   switch (cat) {
     case SPHERE: sphere_hit_adj<MATS>(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_u, d_v, d_ro, d_rd, G); break;
     case RECTANGLE: rect_hit_adj<MATS>(s, v.off, ro, rd, d_p, d_ng, d_dpdu, d_u, d_v, d_ro, d_rd, G); break;
@@ -944,40 +974,38 @@ __device__ void bounce_adj(const Scene& s, const PathState& st, const Bounce& v,
 }
 
 // ------------------------------------------------------------- pixel ----
-// Adds d(g . radiance)/d(params) of one sample of pixel (row, col) to G.
-template <bool MATS>
-__device__ void sample_grad(const Scene& s, const Camera& c, V3 g, uint32_t seed, uint32_t sample,
-                            int max_bounces, uint32_t row, uint32_t col, float sx_scale,
-                            float sy_scale, float* G) {
-  const float fcol = (float)col, frow = (float)(int)row;
-  PathState states[MAX_GRAD_BOUNCES];
-  float jx, jy, unused, ndc_x, ndc_y, sx, sy;
-  uniform3(stream_id(seed, sample, 0, TAG_PIXEL_JITTER), row, col, jx, jy, unused);
-  V3 dir = camera_dir(c, fcol, frow, jx, jy, sx_scale, sy_scale, ndc_x, ndc_y, sx, sy);
-  PathState st;
-  st.rd = normalize(dir);
-  st.ro = c.eye;
-  st.thr = {1.f, 1.f, 1.f};
-  st.skip_emission = false;
-  V3 e = {0.f, 0.f, 0.f};
-  int nb = 0;  // bounces that hit: the ones with a share in the radiance
-  for (int b = 0; b < max_bounces; ++b) {
-    states[b] = st;
-    Bounce v;
-    if (!bounce<true, true, MATS>(s, st, e, seed, sample, b, row, col, v)) break;
-    nb = b + 1;
-    if (!(max_component(st.thr) > 0.f)) break;
-  }
-  // Nothing after the last hit bounce reads its output state.
-  V3 d_ro = {0.f, 0.f, 0.f}, d_rd = {0.f, 0.f, 0.f}, d_thr = {0.f, 0.f, 0.f};
-  for (int b = nb - 1; b >= 0; --b) {
-    PathState again = states[b];
-    Bounce v;
-    bounce<true, true, MATS>(s, again, e, seed, sample, b, row, col, v);
-    bounce_adj<MATS>(s, states[b], v, g, d_ro, d_rd, d_thr, G);
-  }
-  // camera: ro = eye; rd = normalize(right sx + up sy - back),
-  // sx = ndc_x tan_half aspect, sy = ndc_y tan_half
+// What the forward sweep records of a bounce besides its input state: the
+// discrete decisions of the closest-hit fold and the shadow scan, which carry
+// no cotangent (8 bytes).  The reverse sweep replays them (path.cuh `bounce`
+// with REPLAY): it never runs `closest` or `occluded`.
+struct Decision {
+  int obj;   // the winner's table row
+  bool occ;  // the shadow ray was blocked
+};
+
+// The phases a profiling build of K2 strips (csrc/profile_grad.cu), a bit mask
+// and a template parameter of `sample_grad`, 0 in K2.  GRAD_NO_ADJOINT: the
+// reverse sweep replays each bounce and applies no adjoint; GRAD_NO_REPLAY
+// (with it): no reverse sweep at all.  A stripped build adds to G[0] the
+// sample's g . radiance from the forward sweep; without the adjoint, the
+// replay adds to G[1] the replayed bounces whose output state is not the
+// recorded one (0 when replay holds), and to G[2] g . radiance again from the
+// replayed bounces (thr . contrib, last bounce first), so that no part of a
+// replayed bounce is dead code.
+constexpr int GRAD_NO_ADJOINT = 1, GRAD_NO_REPLAY = 2;
+
+__device__ __forceinline__ bool same_state(const PathState& a, const PathState& b) {
+  return a.ro.x == b.ro.x && a.ro.y == b.ro.y && a.ro.z == b.ro.z && a.rd.x == b.rd.x &&
+         a.rd.y == b.rd.y && a.rd.z == b.rd.z && a.thr.x == b.thr.x && a.thr.y == b.thr.y &&
+         a.thr.z == b.thr.z && a.skip_emission == b.skip_emission;
+}
+
+// camera: ro = eye; rd = normalize(dir), dir = right sx + up sy - back,
+// sx = ndc_x tan_half aspect, sy = ndc_y tan_half (camera_dir).
+template <class GradT>
+__device__ __forceinline__ void camera_adj(const Scene& s, const Camera& c, V3 dir, float ndc_x,
+                                           float ndc_y, float sx, float sy, V3 d_ro, V3 d_rd,
+                                           GradT G) {
   const int cam = s.cam;
   gadd3(G, cam, d_ro);
   V3 d_dir = {0.f, 0.f, 0.f};
@@ -988,6 +1016,72 @@ __device__ void sample_grad(const Scene& s, const Camera& c, V3 g, uint32_t seed
   float d_sx = dot(d_dir, c.right), d_sy = dot(d_dir, c.up);
   gadd(G, cam + 12, d_sx * ndc_x * c.aspect + d_sy * ndc_y);
   gadd(G, cam + 13, d_sx * (ndc_x * c.tan_half));
+}
+
+// Adds d(g . radiance)/d(params) of one sample of pixel (row, col) to G.
+// The forward sweep runs K1's bounce and stores each bounce's input state and
+// decisions; the reverse sweep replays bounce b from them (the same values as
+// the forward sweep's, bit for bit) and applies its adjoint; then the
+// camera's.  Every thread of the block calls it (`inside` false past the
+// image's edge: such a thread traces nothing and adds nothing), and both
+// sweeps step their bounces in lock step across the block: a barrier
+// (__syncthreads_or) before each bounce, which also ends a sweep once no
+// thread of the block has a bounce left.  The warps then run the same phase
+// of the same bounce together, so they share the instruction cache; left to
+// drift apart over a pixel's samples, they ran K2 at a third of this speed
+// on configs 2 and 3 (an H100).  A thread's own values and the order of its
+// adds do not depend on the barriers.
+template <bool MATS, int STRIP = 0, bool ALL = true, class GradT>
+__device__ void sample_grad(const Scene& s, const Camera& c, V3 g, uint32_t seed, uint32_t sample,
+                            int max_bounces, uint32_t row, uint32_t col, float sx_scale,
+                            float sy_scale, bool inside, GradT G) {
+  const float fcol = (float)col, frow = (float)(int)row;
+  PathState states[MAX_GRAD_BOUNCES];
+  Decision decided[MAX_GRAD_BOUNCES];
+  float jx, jy, unused, ndc_x, ndc_y, sx, sy;
+  uniform3(stream_id(seed, sample, 0, TAG_PIXEL_JITTER), row, col, jx, jy, unused);
+  V3 dir = camera_dir(c, fcol, frow, jx, jy, sx_scale, sy_scale, ndc_x, ndc_y, sx, sy);
+  PathState st;
+  st.rd = normalize(dir);
+  st.ro = c.eye;
+  st.thr = {1.f, 1.f, 1.f};
+  st.skip_emission = false;
+  V3 e = {0.f, 0.f, 0.f};
+  int nb = 0;  // bounces that hit: the ones with a share in the radiance
+  bool alive = inside;
+  for (int b = 0; b < max_bounces; ++b) {
+    if (!__syncthreads_or(alive)) break;
+    if (!alive) continue;
+    states[b] = st;
+    Bounce v;
+    if (!bounce<ALL, true, MATS>(s, st, e, seed, sample, b, row, col, v)) {
+      alive = false;  // a miss
+      continue;
+    }
+    decided[b] = {v.obj, v.occ};
+    nb = b + 1;
+    alive = max_component(st.thr) > 0.f;  // a dead path adds nothing more
+  }
+  if constexpr (STRIP != 0) gadd(G, 0, dot(g, e));
+  if constexpr ((STRIP & GRAD_NO_REPLAY) != 0) return;
+  // Nothing after the last hit bounce reads its output state.
+  V3 d_ro = {0.f, 0.f, 0.f}, d_rd = {0.f, 0.f, 0.f}, d_thr = {0.f, 0.f, 0.f};
+  for (int b = max_bounces - 1; b >= 0; --b) {
+    if (!__syncthreads_or(b < nb) || b >= nb) continue;
+    PathState again = states[b];
+    Bounce v;
+    v.obj = decided[b].obj;
+    v.occ = decided[b].occ;
+    bounce<ALL, true, MATS, 0, true>(s, again, e, seed, sample, b, row, col, v);
+    if constexpr ((STRIP & GRAD_NO_ADJOINT) != 0) {
+      gadd(G, 1, same_state(again, b + 1 < nb ? states[b + 1] : st) ? 0.f : F(1.0));
+      gadd(G, 2, dot(g, states[b].thr * v.contrib));
+    } else {
+      bounce_adj<MATS, ALL>(s, states[b], v, g, d_ro, d_rd, d_thr, G);
+    }
+  }
+  if constexpr (STRIP == 0)
+    if (inside) camera_adj(s, c, dir, ndc_x, ndc_y, sx, sy, d_ro, d_rd, G);
 }
 
 }  // namespace

@@ -664,7 +664,8 @@ __device__ void cluster_boxes(const Scene& s, float* box, int tid, int n_threads
 //   MATS - it holds a material other than MATTE and MIRROR or a texture other
 //          than UNIFORM_COLOR; without it the metal, glass and uv texture
 //          code is left out, and configs 1-2 compile the smaller bounce.
-// K2 takes ALL and CULL's defaults, which hold for every scene.
+// K2 takes CULL's default (it sets no cluster boxes, so it never culls) and
+// ALL as its build says (render_grad.cuh).
 
 // The t-only test of table row i.  The benchmark scenes' categories come
 // first as plain branches: one switch over all nine measured 4-13% slower on
@@ -852,7 +853,7 @@ struct Bounce {
   float cw;         // matte: weight_raw = f * cw, cw free of parameters
   float offs;       // ro' = p + n * offs
   // next-event estimation (nee_on: did NEE, unoccluded, light in wo's hemisphere)
-  bool nee_on;
+  bool nee_on, occ;  // occ: the shadow ray was blocked (false where no NEE ran)
   int loff, lem;
   RectFrame lf;
   float lu1, lu2, pdf_a, d2, cos_l, cos_s, dist;
@@ -862,12 +863,20 @@ struct Bounce {
 // One bounce of the path from `st`: closest hit, surface color, BSDF sample,
 // next-event estimation with a shadow ray.  Returns false on a miss (the path
 // adds nothing more); otherwise adds the bounce's radiance to `e` and
-// advances `st`.
-template <bool ALL = true, bool CULL = true, bool MATS = true, int STRIP = 0>
+// advances `st`.  The bounce's two discrete decisions land in `v`: the
+// winner's table row (`v.obj`) and the shadow ray's bit (`v.occ`).
+// REPLAY (K2's reverse sweep, adjoint.cuh) takes both from `v` as an earlier
+// call on the same state recorded them, in place of the closest-hit fold and
+// the shadow scan; every other value is computed by the same code in the same
+// order, so a replayed bounce is the recorded one bit for bit.  K1 does not
+// replay (REPLAY false).
+template <bool ALL = true, bool CULL = true, bool MATS = true, int STRIP = 0, bool REPLAY = false>
 __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uint32_t seed,
                                        uint32_t sample, int bounce_idx, uint32_t row, uint32_t col,
                                        Bounce& v) {
-  int i = closest<ALL, CULL>(s, st.ro, st.rd);
+  int i;
+  if constexpr (REPLAY) i = v.obj;
+  else i = closest<ALL, CULL>(s, st.ro, st.rd);
   if (i < 0) return false;
   V3 rd = st.rd;
   v.obj = i;
@@ -951,6 +960,7 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
   V3 contrib = v.emit_on ? emission : V3{0.f, 0.f, 0.f};
   bool did_nee = false;
   v.nee_on = false;
+  if constexpr (!REPLAY) v.occ = false;
   if (s.n_light > 0) {
     float lu1, lu2, lr;
     draw3<STRIP>(stream_id(seed, sample, bounce_idx, TAG_LIGHT_U), row, col, lu1, lu2, lr);
@@ -979,8 +989,10 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
       v.dist = length(v.to_l);
       v.wsh = v.to_l * (F(1.0) / fmaxf(v.dist, F(1e-12)));
       bool occ = false;
-      if constexpr ((STRIP & STRIP_NO_SHADOW) == 0)
+      if constexpr (REPLAY) occ = v.occ;
+      else if constexpr ((STRIP & STRIP_NO_SHADOW) == 0)
         occ = occluded<ALL, CULL>(s, h.p + n * F(1e-4), v.wsh, v.dist * F(1.0 - 1e-3));
+      if constexpr (!REPLAY) v.occ = occ;
       V3 direct = v.rad * (occ ? 0.f : F(1.0));
       v.wl_local = world_to_local(v.wsh, n, ss, ts);
       bool lit = wo.z * v.wl_local.z > F(1e-5);

@@ -17,8 +17,13 @@ version for a CPU tensor; it never falls back from one to the other.
 `render_block.launches`, `render_grad_block.launches` (K2, launched by
 `render_grad_rows`) and `reduce_grad_rows.launches` count kernel launches.
 K1 is built for eight scene kinds (`render_block_kernel<ALL, CULL, MATS,
-0>`, `csrc/render_block.cuh`; the last argument strips no phase) and K2 for two (`render_grad_kernel<CAP, MATS>`); the table says which a
-scene is.
+0>`, `csrc/render_block.cuh`; the last argument strips no phase) and K2
+(`render_grad_kernel<CAP, ALL, MATS, 0, MIN_BLOCKS>`,
+`csrc/render_grad.cuh`) for where each thread keeps its gradient (CAP: in
+shared memory up to SHARED_GRAD_MAX_PARAMS parameters, else in a local
+array of GRAD_CAPS floats, `grad_build`), for MATS, and for configs 1-2's
+kind at two blocks per SM (the C entry's choice, `csrc/grad_build.h`;
+`grad_launch_bound` reports it); the table says which kind a scene is.
 
 `render_image_fast` / `render_tile_fast` are the JAX package's
 `custom_vjp`s (`megakernel.py:497-569`) as `torch.autograd.Function`s:
@@ -163,8 +168,9 @@ def _bind(source: str, name: str, argtypes):
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # The C entries' argument types, in their order (csrc/*.cu `extern "C"`).
 K1_ARGTYPES = [_PTR] * 2 + [_INT] * 10 + [_PTR] * 3 + [_INT] * 8 + [_PTR]
-K2_ARGTYPES = [_PTR] * 2 + [_INT] * 10 + [_PTR] * 4 + [_INT] * 8 + [_PTR]
+K2_ARGTYPES = [_PTR] * 2 + [_INT] * 11 + [_PTR] * 4 + [_INT] * 8 + [_PTR]
 REDUCE_ARGTYPES = [_PTR, _INT, _INT, _PTR, _PTR]
+MIN_BLOCKS_ARGTYPES = [_INT] * 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -275,13 +281,18 @@ def render_grad_block_plain(params: torch.Tensor, static: SceneStatic,
     return grad
 
 
-# The gradient-array sizes K2 is built for (`megakernel_grad.cu` CAPS).
+# The local gradient-array sizes K2 is built for (`grad_build.h` CAPS), the
+# build that keeps the gradient in shared memory instead (SHARED_GRAD), the most parameters it takes
+# (SHARED_MAX_PARAMS: 256 + 8 floats a parameter in 232,448 bytes).
 GRAD_CAPS = (352, 1024, 4096)
+GRAD_BLOCK = (16, 16)   # K2's thread block: columns, rows
+SHARED_GRAD = 0
+SHARED_GRAD_MAX_PARAMS = 220
 
 
 def grad_cap(n_params: int, caps=GRAD_CAPS) -> int:
-    """The K2 build a scene of `n_params` parameters runs: the smallest cap
-    that holds them.  Raises above the largest."""
+    """The local K2 build that holds `n_params` parameters: the smallest
+    cap that holds them.  Raises above the largest."""
     for cap in caps:
         if n_params <= cap:
             return cap
@@ -289,26 +300,49 @@ def grad_cap(n_params: int, caps=GRAD_CAPS) -> int:
                      f"scene has {n_params}")
 
 
+def grad_build(n_params: int) -> int:
+    """The K2 build a scene of `n_params` parameters runs: SHARED_GRAD (the
+    gradient in shared memory) up to SHARED_GRAD_MAX_PARAMS, else the local
+    build of `grad_cap`.  Raises above the largest."""
+    return SHARED_GRAD if n_params <= SHARED_GRAD_MAX_PARAMS \
+        else grad_cap(n_params)
+
+
 @functools.lru_cache(maxsize=None)
 def _grad_entries():
     lib = build.load(_GRAD_SOURCE)
     limits = (ctypes.c_int * 16)()
     lib.sail_grad_limits(limits)
-    caps = tuple(limits[4:4 + limits[3]])
-    if caps != GRAD_CAPS:
-        raise RuntimeError(f"K2 was built for caps {caps}, the wrapper "
-                           f"expects {GRAD_CAPS}")
+    n_caps = limits[3]
+    built = (tuple(limits[:2]), tuple(limits[4:4 + n_caps]),
+             limits[4 + n_caps])
+    want = (GRAD_BLOCK, GRAD_CAPS, SHARED_GRAD_MAX_PARAMS)
+    if built != want:
+        raise RuntimeError(f"K2 was built for (block, caps, the shared "
+                           f"build's parameters) {built}, the wrapper "
+                           f"expects {want}")
     return (_bind(_GRAD_SOURCE, "sail_render_grad_block", K2_ARGTYPES),
             _bind(_GRAD_SOURCE, "sail_reduce_grad_rows", REDUCE_ARGTYPES),
-            tuple(limits[:3]))
+            tuple(limits[:3]),
+            _bind(_GRAD_SOURCE, "sail_grad_min_blocks", MIN_BLOCKS_ARGTYPES))
 
 
 def grad_limits() -> dict:
     """K2's compile-time bounds, read from the built library: its thread
     block (columns, rows), the most bounces a thread can store, and the
-    gradient-array sizes it is built for."""
+    local gradient-array sizes it is built for."""
     bx, by, max_bounces = _grad_entries()[2]
     return dict(block=(bx, by), max_bounces=max_bounces, caps=GRAD_CAPS)
+
+
+def grad_launch_bound(n_params: int, static: SceneStatic) -> int:
+    """The blocks per SM of the K2 build `render_grad_rows` launches for a
+    scene of `n_params` parameters (its launch bound), as the C entry
+    chooses it (`csrc/grad_build.h`): 2 for configs 1-2's kind where two
+    blocks' shared memory fit on an SM, else 1.  Reads the built library."""
+    table = scene_table(static)
+    return _grad_entries()[3](n_params, grad_build(n_params),
+                              int(table.all_shapes), int(table.materials))
 
 
 def reduce_grad_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -381,8 +415,8 @@ def render_grad_rows(params: torch.Tensor, static: SceneStatic, g: Vec3,
     if not params.is_cuda:
         raise TypeError("render_grad_rows runs K2 on the card: params must "
                         "be a CUDA tensor")
-    cap = grad_cap(off.size)
-    grad_fn, _, (bx, by, max_bounces_cap) = _grad_entries()
+    table = scene_table(static)
+    grad_fn, _, (bx, by, max_bounces_cap), _ = _grad_entries()
     if max_bounces > max_bounces_cap:
         raise ValueError(f"K2 takes at most {max_bounces_cap} bounces; got "
                          f"{max_bounces}")
@@ -392,8 +426,8 @@ def render_grad_rows(params: torch.Tensor, static: SceneStatic, g: Vec3,
     with torch.cuda.device(dev):
         err = grad_fn(
             params.data_ptr(), _device_table(static, dev).data_ptr(),
-            *_counts(static), off.camera, off.size, cap,
-            int(scene_table(static).materials), g.x.data_ptr(),
+            *_counts(static), off.camera, off.size, grad_build(off.size),
+            int(table.all_shapes), int(table.materials), g.x.data_ptr(),
             g.y.data_ptr(), g.z.data_ptr(), rows.data_ptr(), height, width,
             spp, _int32(seed), _int32(sample0), max_bounces, row0,
             image_height, torch.cuda.current_stream(dev).cuda_stream)

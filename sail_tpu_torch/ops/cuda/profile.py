@@ -14,15 +14,20 @@
   the patches of `phases_section` (:325-350), so that K1's time splits by
   subtraction.  It is K1's own kernel template (`csrc/render_block.cuh`)
   with a strip bit set, built for config 2's scene kind.
+- K2 with a phase stripped, `render_grad_stripped` (the forward sweep
+  alone; the sweep and the replay without the adjoint): K2's own kernel
+  template (`csrc/render_grad.cuh`) for configs 1-2's scene kind, so that
+  K2's time splits by subtraction.
 
-All four are CUDA C++ for sm_90a in `csrc/profile.cu` (its header says what
-bounds each and how the design answers), bound through plain C entry points
-with ctypes.  A wrapper launches its kernel for a CUDA tensor (`alu_peak`
-and `alu_peak_ilp8`, which take no tensor, for `device="cuda"`, the
-default) and runs the plain version on the CPU; it never falls back from
-one to the other.  `isect_only_block.launches`, `alu_peak.launches`,
-`alu_peak_ilp8.launches` and `render_block_stripped.launches` count kernel
-launches.
+The first four are CUDA C++ for sm_90a in `csrc/profile.cu`, K2's builds
+in `csrc/profile_grad.cu` (their headers say what bounds each and how the
+design answers), bound through plain C entry points with ctypes.  A wrapper
+launches its kernel for a CUDA tensor (`alu_peak` and `alu_peak_ilp8`,
+which take no tensor, for `device="cuda"`, the default) and runs the plain
+version on the CPU; it never falls back from one to the other.
+`isect_only_block.launches`, `alu_peak.launches`, `alu_peak_ilp8.launches`,
+`render_block_stripped.launches` and `render_grad_stripped.launches` count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -358,6 +363,118 @@ def render_block_stripped(strip: str, params: torch.Tensor,
 
 
 render_block_stripped.launches = 0
+
+
+# ------------------------------------------------------------ K2 phases ----
+# csrc/profile_grad.cu: K2's own template (csrc/render_grad.cuh) for configs
+# 1-2's scene kind with a phase stripped (adjoint.cuh's GRAD_NO_* bits).
+_GRAD_SOURCE = "profile_grad"
+GRAD_STRIPS = {"forward_only": 0, "no_adjoint": 1}
+GRAD_PROFILE_ARGTYPES = [_INT] + [_PTR] * 2 + [_INT] * 10 + [_PTR] * 4 \
+    + [_INT] * 8 + [_PTR]
+
+
+@functools.lru_cache(maxsize=None)
+def _grad_entry():
+    return mk._bind(_GRAD_SOURCE, "sail_render_grad_profile",
+                    GRAD_PROFILE_ARGTYPES)
+
+
+def _grad_profile_rows(variant: int, what: str, params, static, g, height,
+                       width, spp, seed, sample0, max_bounces, row0,
+                       image_height) -> torch.Tensor:
+    """One launch of a profile_grad.cu variant: K2's (n_blocks, n_params)
+    rows.  The C entry refuses a scene off configs 1-2's kind (the scenes
+    K2 runs at two blocks per SM), and this raises."""
+    off = mk._check_grad_block(params, static, g, height, width, spp,
+                               max_bounces, row0, image_height)
+    table = mk.scene_table(static)
+    bx, by = mk.GRAD_BLOCK
+    dev = params.device
+    rows = torch.empty((-(-width // bx) * -(-height // by), off.size),
+                       dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _grad_entry()(
+            variant, params.data_ptr(),
+            mk._device_table(static, dev).data_ptr(), *mk._counts(static),
+            off.camera, off.size, int(table.all_shapes),
+            int(table.materials), g.x.data_ptr(), g.y.data_ptr(),
+            g.z.data_ptr(), rows.data_ptr(), height, width, spp,
+            mk._int32(seed), mk._int32(sample0), max_bounces, row0,
+            image_height, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {err} (on "
+                           f"the card it runs configs 1-2's scene kind "
+                           f"only: spheres, rectangles, a Cornell box; "
+                           f"matte and mirror; uniform colors; the "
+                           f"parameters two blocks per SM hold)")
+    return rows
+
+
+def block_sums(x: torch.Tensor) -> torch.Tensor:
+    """Sums of an (H, W) tensor over K2's thread blocks (GRAD_BLOCK pixels,
+    the ragged edge padded with zeros), one per block in launch order."""
+    bx, by = mk.GRAD_BLOCK
+    h, w = x.shape
+    pad = torch.zeros((-(-h // by) * by, -(-w // bx) * bx), dtype=x.dtype,
+                      device=x.device)
+    pad[:h, :w] = x
+    return pad.reshape(pad.shape[0] // by, by, pad.shape[1] // bx, bx) \
+        .sum(dim=(1, 3)).reshape(-1)
+
+
+def render_grad_stripped_plain(strip: str, params: torch.Tensor,
+                               static: SceneStatic, g: Vec3, height: int,
+                               width: int, spp: int, seed, sample0,
+                               max_bounces: int, row0: int = 0,
+                               image_height: int = None) -> torch.Tensor:
+    """The plain version of K2 with `strip` stripped, on any scene: K2's
+    rows, zero but for column 0 (and, for no_adjoint, column 2): each
+    block's Σ g · (spp-SUM of radiance), from the plain forward render;
+    column 1 (the replayed states that differ from the recorded ones) is
+    0."""
+    if strip not in GRAD_STRIPS:
+        raise ValueError(f"strip must be one of {tuple(GRAD_STRIPS)}, not "
+                         f"{strip!r}")
+    img = mk.render_block_plain(params, static, height, width, spp, seed,
+                                sample0, max_bounces, row0, image_height)
+    loss = block_sums(img.x * g.x + img.y * g.y + img.z * g.z)
+    rows = torch.zeros((loss.numel(), params.numel()), dtype=params.dtype,
+                       device=params.device)
+    rows[:, 0] = loss
+    if strip == "no_adjoint":
+        rows[:, 2] = loss
+    return rows
+
+
+def render_grad_stripped(strip: str, params: torch.Tensor,
+                         static: SceneStatic, g: Vec3, height: int,
+                         width: int, spp: int, seed, sample0,
+                         max_bounces: int, row0: int = 0,
+                         image_height: int = None) -> torch.Tensor:
+    """K2 with `strip` (a key of GRAD_STRIPS) stripped, as the rows
+    `render_grad_rows` gives: forward_only runs K2's forward sweep alone,
+    no_adjoint the sweep and the reverse sweep's replay without the adjoint
+    (`render_grad_stripped_plain` says what the rows hold).  On the card it
+    is built for configs 1-2's scene kind and raises for another scene."""
+    image_height = height if image_height is None else image_height
+    if strip not in GRAD_STRIPS:
+        raise ValueError(f"strip must be one of {tuple(GRAD_STRIPS)}, not "
+                         f"{strip!r}")
+    if params.device.type == "cpu":
+        mk._check_grad_block(params, static, g, height, width, spp,
+                             max_bounces, row0, image_height)
+        return render_grad_stripped_plain(strip, params, static, g, height,
+                                          width, spp, seed, sample0,
+                                          max_bounces, row0, image_height)
+    rows = _grad_profile_rows(GRAD_STRIPS[strip], "render_grad_stripped",
+                              params, static, g, height, width, spp, seed,
+                              sample0, max_bounces, row0, image_height)
+    render_grad_stripped.launches += 1
+    return rows
+
+
+render_grad_stripped.launches = 0
 
 
 def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:

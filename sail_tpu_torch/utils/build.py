@@ -137,10 +137,15 @@ def kernel_name(symbol: str) -> str:
 
 
 def resource_usage(name: str) -> dict:
-    """{kernel name: registers, spill bytes and stack} for each kernel in the
-    library, from the `-Xptxas -v` report of its build."""
+    """{kernel name: registers, spill bytes, stack and static shared memory}
+    for each kernel in the library, from the `-Xptxas -v` report of its
+    build."""
     with open(_library_path(name) + ".log") as f:
-        log = f.read()
+        return parse_resource_usage(f.read())
+
+
+def parse_resource_usage(log: str) -> dict:
+    """`resource_usage` of one `-Xptxas -v` report."""
     out = {}
     kernel = symbol = None
     for line in log.splitlines():
@@ -159,4 +164,6 @@ def resource_usage(name: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
             out.setdefault(kernel, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[kernel]["smem"] = int(m.group(1)) if m else 0
     return out

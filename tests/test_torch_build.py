@@ -86,9 +86,11 @@ def test_resource_usage_reports_each_kernel(csrc):
             "ptxas info    : Used 12 registers, 1024 bytes smem\n")
     assert build.resource_usage("k") == {
         "render_grad_kernel": dict(registers=128, stack=1792,
-                                   spill_stores=8, spill_loads=8),
+                                   spill_stores=8, spill_loads=8,
+                                   smem=11264),
         "reduce_grad_rows_kernel": dict(registers=12, stack=0,
-                                        spill_stores=0, spill_loads=0)}
+                                        spill_stores=0, spill_loads=0,
+                                        smem=1024)}
 
 
 def test_build_without_nvcc_raises(csrc, monkeypatch):
@@ -149,11 +151,15 @@ def test_ctypes_bindings_match_the_c_entries():
             ("megakernel_grad.cu", "sail_render_grad_block", mk.K2_ARGTYPES),
             ("megakernel_grad.cu", "sail_reduce_grad_rows",
              mk.REDUCE_ARGTYPES),
+            ("megakernel_grad.cu", "sail_grad_min_blocks",
+             mk.MIN_BLOCKS_ARGTYPES),
             ("profile.cu", "sail_isect_only", pf.ISECT_ARGTYPES),
             ("profile.cu", "sail_alu_peak", pf.ALU_ARGTYPES),
             ("profile.cu", "sail_alu_peak_ilp8", pf.ALU_ILP8_ARGTYPES),
             ("profile.cu", "sail_render_block_stripped",
-             pf.STRIPPED_ARGTYPES)):
+             pf.STRIPPED_ARGTYPES),
+            ("profile_grad.cu", "sail_render_grad_profile",
+             pf.GRAD_PROFILE_ARGTYPES)):
         with open(os.path.join(csrc, source)) as f:
             text = f.read()
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1)
@@ -185,3 +191,66 @@ def test_profile_constants_match_the_source():
     for name in ("megakernel", "profile"):
         assert "render_block.cuh" in {os.path.basename(p)
                                       for p in build.sources(name)}
+    # ... and K2's are K2's (render_grad.cuh, which takes its builds'
+    # limits and launch bounds from grad_build.h), its variants in the
+    # wrapper's order
+    for name in ("megakernel_grad", "profile_grad"):
+        assert {"render_grad.cuh", "grad_build.h"} <= {
+            os.path.basename(p) for p in build.sources(name)}
+    with open(os.path.join(build.CSRC_DIR, "profile_grad.cu")) as f:
+        variants = dict(re.findall(r"VARIANT_(\w+) = (\d+)", f.read()))
+    assert {k.lower(): int(v) for k, v in variants.items()} == \
+        pf.GRAD_STRIPS
+
+
+# The K2 entry of the tree before the shared-memory build (no all_shapes),
+# as a parent's source gives it to tools/k2_compare.py.
+_PARENT_K2_DECL = '''
+extern "C" int sail_render_grad_block(const float* params, const int* table, int n_obj,
+                                      int n_plain, int n_groups, int n_mat, int n_tex,
+                                      int n_light, int cam, int n_params, int cap, int materials,
+                                      const float* gx, const float* gy, const float* gz,
+                                      float* rows, int height, int width, int spp, int seed,
+                                      int sample0, int max_bounces, int row0, int image_height,
+                                      void* stream) {
+'''
+
+
+def test_k2_compare_binds_a_parent_by_its_signature():
+    """tools/k2_compare.py binds a parent's K2 from the parameters its
+    source declares, by name: this tree's entry and the entry without
+    `all_shapes` each get their own argument list; a parameter the tool
+    does not know stops it; the parent's build comes from its limits."""
+    import ctypes
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.tools import k2_compare as kc
+    names = ("params", "table", "n_obj", "n_plain", "n_groups", "n_mat",
+             "n_tex", "n_light", "cam", "n_params", "cap", "all_shapes",
+             "materials", "gx", "gy", "gz", "rows", "height", "width", "spp",
+             "seed", "sample0", "max_bounces", "row0", "image_height",
+             "stream")
+    values = {n: i for i, n in enumerate(names)}
+    with open(os.path.join(build.CSRC_DIR, "megakernel_grad.cu")) as f:
+        here = kc.entry_params(f.read())
+    argtypes, args = kc.parent_args(here, values)
+    assert argtypes == mk.K2_ARGTYPES
+    assert args == [values[n] for n in names]
+    old = kc.entry_params(_PARENT_K2_DECL)
+    argtypes, args = kc.parent_args(old, values)
+    assert [n for _, n in old] == [n for n in names if n != "all_shapes"]
+    assert argtypes == [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 \
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    assert args[11] == values["materials"]
+    with pytest.raises(ValueError, match="min_blocks"):
+        kc.parent_args(old[:11] + [(False, "min_blocks")] + old[11:], values)
+    with pytest.raises(ValueError, match="cap"):
+        kc.parent_args([(True, n) if n == "cap" else (p, n)
+                        for p, n in old], values)
+    # limits: block, bounces, number of local sizes, the sizes, and the
+    # shared build's most parameters where the parent has it (else -1)
+    old_limits = [16, 16, 8, 3, 352, 1024, 4096] + [-1] * 25
+    new_limits = [16, 16, 8, 3, 352, 1024, 4096, 220] + [-1] * 24
+    assert [kc.parent_cap(old_limits, n) for n in (72, 879, 3375)] == \
+        [352, 1024, 4096]
+    assert [kc.parent_cap(new_limits, n) for n in (72, 220, 221, 879)] == \
+        [0, 0, 352, 1024]
