@@ -11,10 +11,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (csrc/profile.cu: K5a, K5b, K5c, K1 with each of four phases
      stripped) and K2's stripped builds (csrc/profile_grad.cu), one nvcc
      each, started together, and reports each kernel's registers, stack,
-     spills and static shared memory (nvcc -Xptxas -v).
+     spills and static shared memory (nvcc -Xptxas -v): K1's per build,
+     render_block_kernel<ALL, CULL, MATS, STRIP>.
   2. kernel vs plain on the card: K1 against its plain torch version on the
      same CUDA tensors (cornell_matte, cornell_mirror, a row tile, a ragged
-     block with another seed, and open_lights: misses, Oren-Nayar, an
+     block with another seed, whose threads past the image's edge take part
+     in every barrier of K1's loop, and open_lights: misses, Oren-Nayar, an
      emissive sphere, a reversed light, two lights, a 3:2 image), and the
      committed golden images tests/goldens/config{1,2}*.npy.
   3. the forward path: Renderer(1024, 1024, seed=0, max_bounces=5,
@@ -61,7 +63,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      version at 64² x 4 spp x 3 bounces on material_demo, its open twin
      material_demo_open and the check scene material_check (Beckmann and
      anisotropic GGX metal, rough glass of both distributions, each uv
-     texture), and golden config3; then Renderer(1024, 1024, seed=0,
+     texture), and golden config3 (the open twin's paths end at different
+     bounces, so K1's threads regenerate paths out of step); then
+     Renderer(1024, 1024, seed=0,
      max_bounces=5) -> update(material_demo) -> render_spp(64) -> output
      through exactly one K1 launch, timed, its K1 held against the plain
      version on a full-width row tile; Renderer(..., early_exit=True) on
@@ -99,8 +103,9 @@ operations the plain version's masks say these paths need
 (sail_tpu_torch/utils/opcount.py) over 67 TFLOP/s, or the bytes over
 3.35 TB/s, whichever is larger; K5b's and K5c's, the slower of their FP32
 operations over 67 TFLOP/s and their rsqrts over the SFU's 16 per SM per
-clock at the card's maximum SM clock.  The last two lines are a JSON object per
-kernel and the JSON result.  Imports nothing of JAX.
+clock at the card's maximum SM clock; each row of the `kernels` line gives
+the bound's share of the kernel's time.  The last two lines are a JSON
+object per kernel and the JSON result.  Imports nothing of JAX.
 """
 import json
 import os
@@ -244,14 +249,15 @@ def k2_build(n_params: int, static) -> str:
 def kernel_row(name: str, source: str, replaces: str, launches: int,
                max_abs_err: float, ms: float, plain_ms: float, b: dict,
                shape: str, library_ms: float = None, **extra) -> dict:
-    """One entry of the `kernels` line: `ms` and the bound at `shape`; where
-    the plain version ran on a row tile of it (`plain_shape`), `tile_ms` is
-    the kernel's time there."""
+    """One entry of the `kernels` line: `ms`, the bound at `shape` and its
+    share of `ms`; where the plain version ran on a row tile of it
+    (`plain_shape`), `tile_ms` is the kernel's time there."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-            "library_ms": library_ms, "shape": shape, **extra}
+            "library_ms": library_ms, "shape": shape,
+            "share_of_bound": b["bound_ms"] / ms, **extra}
 
 
 def gradient_path(dev, card: str) -> list:

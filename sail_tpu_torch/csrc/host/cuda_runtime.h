@@ -1,8 +1,9 @@
-// A host stand-in for <cuda_runtime.h>, so that K2's per-sample device code
-// (path.cuh, bsdf.cuh, adjoint.cuh) compiles with a C++ compiler for the
-// CPU: the qualifiers become plain (inline) C++, __ldg a load, and a block
-// barrier one thread's own.  Only k2_host.cpp includes it (`-I csrc/host`);
-// the kernels build with nvcc and the real header.
+// A host stand-in for <cuda_runtime.h>, so that the kernels' per-thread
+// device code (path.cuh, bsdf.cuh, adjoint.cuh, render_block.cuh's
+// `render_pixel`) compiles with a C++ compiler for the CPU: the qualifiers
+// become plain (inline) C++, __ldg a load, and a block barrier one thread's
+// own.  Only k1_host.cpp and k2_host.cpp include it (`-I csrc/host`); the
+// kernels build with nvcc and the real header.
 #pragma once
 
 #include <math.h>

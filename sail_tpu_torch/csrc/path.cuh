@@ -2,9 +2,12 @@
 // forward) and K2 (megakernel_grad.cu, the backward).  Vector math, the
 // counter-based RNG, the fastmath polynomials, the scene table, the
 // intersections and bound boxes of the nine shape categories, the closest-hit
-// fold (with its opt-in cluster cull) and the shadow scan, the matte BSDF (the
-// metal and glass samples and the textures are bsdf.cuh), and one path bounce
-// (`bounce`) with every intermediate value the adjoint reads (`Bounce`).
+// fold (with its opt-in cluster cull) and the shadow scan, K1's pass that
+// runs both for two rays at once over staged invariants (`fold`), the matte
+// BSDF (the metal and glass samples and the textures are bsdf.cuh), and one
+// path bounce (`bounce`, in parts that K1 runs around a deferred shadow ray:
+// `bounce_open`, `light_sample`, `nee_light`, `advance`) with every
+// intermediate value the adjoint reads (`Bounce`).
 //
 // Numerics follow the plain torch version (render/integrator.py) operation
 // by operation: build with -fmad=false and without --use_fast_math; rsqrt is
@@ -312,8 +315,7 @@ __device__ __forceinline__ float rect_t(const Scene& s, int off, const RectFrame
   return valid ? t : MAX_DISTANCE;
 }
 
-__device__ Hit rect_hit(const Scene& s, int off, V3 ro, V3 rd) {
-  RectFrame f = rect_frame(s, off);
+__device__ Hit rect_hit(const Scene& s, int off, const RectFrame& f, V3 ro, V3 rd) {
   V3 hl;
   Hit h;
   h.t = rect_t(s, off, f, ro, rd, hl);
@@ -327,13 +329,26 @@ __device__ Hit rect_hit(const Scene& s, int off, V3 ro, V3 rd) {
   return h;
 }
 
+__device__ __forceinline__ Hit rect_hit(const Scene& s, int off, V3 ro, V3 rd) {
+  return rect_hit(s, off, rect_frame(s, off), ro, rd);
+}
+
 // ---------------------------------------------------------------- boxes ----
-__device__ __forceinline__ void slab(V3 ro, V3 rd, V3 bmin, V3 bmax, float& tnear, float& tfar) {
-  V3 inv = {safe_div(F(1.0), rd.x), safe_div(F(1.0), rd.y), safe_div(F(1.0), rd.z)};
+// The slab test's reciprocal direction: a function of the ray alone, which K1
+// computes once per ray (`Ray`) and K2 in every test.
+__device__ __forceinline__ V3 recip(V3 rd) {
+  return {safe_div(F(1.0), rd.x), safe_div(F(1.0), rd.y), safe_div(F(1.0), rd.z)};
+}
+
+__device__ __forceinline__ void slab_inv(V3 ro, V3 inv, V3 bmin, V3 bmax, float& tnear, float& tfar) {
   V3 tmin = (bmin - ro) * inv;
   V3 tmax = (bmax - ro) * inv;
   tnear = fmaxf(fmaxf(fminf(tmin.x, tmax.x), fminf(tmin.y, tmax.y)), fminf(tmin.z, tmax.z));
   tfar = fminf(fminf(fmaxf(tmin.x, tmax.x), fmaxf(tmin.y, tmax.y)), fmaxf(tmin.z, tmax.z));
+}
+
+__device__ __forceinline__ void slab(V3 ro, V3 rd, V3 bmin, V3 bmax, float& tnear, float& tfar) {
+  slab_inv(ro, recip(rd), bmin, bmax, tnear, tfar);
 }
 
 __device__ __forceinline__ float face_axis(float h, float lo, float hi) {
@@ -365,19 +380,24 @@ __device__ __forceinline__ void box_uv(V3 p, V3 n, V3 bmin, V3 bmax, float& u, f
 
 // ----------------------------------------------------------------- cube ----
 // params: bmin[3], bmax[3], emission[3], reverse
-__device__ __forceinline__ float cube_t(const Scene& s, int off, V3 ro, V3 rd) {
+// `inv` = recip(rd)
+__device__ __forceinline__ float cube_t_inv(const Scene& s, int off, V3 ro, V3 inv) {
   float tnear, tfar;
-  slab(ro, rd, P3(s, off), P3(s, off + 3), tnear, tfar);
+  slab_inv(ro, inv, P3(s, off), P3(s, off + 3), tnear, tfar);
   bool outside = tnear > EPSILON && tnear < tfar;
   float t = outside ? tnear : tfar;
   bool valid = tnear < tfar && t > EPSILON;
   return valid ? t : MAX_DISTANCE;
 }
 
-__device__ Hit cube_hit(const Scene& s, int off, V3 ro, V3 rd) {
+__device__ __forceinline__ float cube_t(const Scene& s, int off, V3 ro, V3 rd) {
+  return cube_t_inv(s, off, ro, recip(rd));
+}
+
+__device__ Hit cube_hit(const Scene& s, int off, V3 ro, V3 rd, V3 inv) {
   V3 bmin = P3(s, off), bmax = P3(s, off + 3);
   Hit h;
-  h.t = cube_t(s, off, ro, rd);
+  h.t = cube_t_inv(s, off, ro, inv);
   h.p = ro + rd * h.t;
   h.ng = box_normal(h.p, bmin, bmax);
   h.dpdu = box_dpdu(h.ng);
@@ -387,18 +407,26 @@ __device__ Hit cube_hit(const Scene& s, int off, V3 ro, V3 rd) {
   return h;
 }
 
+__device__ __forceinline__ Hit cube_hit(const Scene& s, int off, V3 ro, V3 rd) {
+  return cube_hit(s, off, ro, rd, recip(rd));
+}
+
 // ---------------------------------------------------------- cornellbox ----
-__device__ __forceinline__ float cornell_t(const Scene& s, int off, V3 ro, V3 rd) {
+__device__ __forceinline__ float cornell_t_inv(const Scene& s, int off, V3 ro, V3 inv) {
   float tnear, tfar;
-  slab(ro, rd, P3(s, off), P3(s, off + 3), tnear, tfar);
+  slab_inv(ro, inv, P3(s, off), P3(s, off + 3), tnear, tfar);
   bool valid = tnear < tfar && tfar > EPSILON;
   return valid ? tfar : MAX_DISTANCE;
 }
 
-__device__ Hit cornell_hit(const Scene& s, int off, V3 ro, V3 rd) {
+__device__ __forceinline__ float cornell_t(const Scene& s, int off, V3 ro, V3 rd) {
+  return cornell_t_inv(s, off, ro, recip(rd));
+}
+
+__device__ Hit cornell_hit(const Scene& s, int off, V3 ro, V3 rd, V3 inv) {
   V3 bmin = P3(s, off), bmax = P3(s, off + 3);
   Hit h;
-  h.t = cornell_t(s, off, ro, rd);
+  h.t = cornell_t_inv(s, off, ro, inv);
   V3 p = ro + rd * h.t;
   V3 n = -box_normal(p, bmin, bmax);
   h.dpdu = box_dpdu(n);
@@ -413,6 +441,10 @@ __device__ Hit cornell_hit(const Scene& s, int off, V3 ro, V3 rd) {
   h.p = p;
   h.ng = n;
   return h;
+}
+
+__device__ __forceinline__ Hit cornell_hit(const Scene& s, int off, V3 ro, V3 rd) {
+  return cornell_hit(s, off, ro, rd, recip(rd));
 }
 
 // ------------------------------------------------------- the quadrics ----
@@ -777,6 +809,140 @@ __device__ Hit object_hit(const Scene& s, int i, V3 ro, V3 rd) {
   return cornell_hit(s, off, ro, rd);
 }
 
+// ------------------------------------------ K1's fold and staged values ----
+// K1 (render_block.cuh) computes what does not change within a launch or
+// along a ray once: each rectangle's frame once per block, each ray's slab
+// reciprocal once per ray.  The values come from the same functions on the
+// same inputs, so every test below gives the value of its counterpart above
+// (object_t, closest, occluded, object_hit), which K2 keeps.
+
+// A ray and its slab reciprocal, recip(d).
+struct Ray {
+  V3 o, d, inv;
+};
+
+__device__ __forceinline__ Ray make_ray(V3 o, V3 d) { return {o, d, recip(d)}; }
+
+// A block's staged rectangle frames: f[row] = rect_frame of each RECTANGLE
+// table row below n, in shared memory (the other rows' slots unused).  A
+// rectangle at row n or later computes its frame in each test.
+struct Frames {
+  const RectFrame* f;
+  int n;
+};
+
+// Fills `f` (n slots) for stage_frames' rows: the threads of a block share
+// the work, as in cluster_boxes.
+__device__ void stage_frames(const Scene& s, RectFrame* f, int n, int tid, int n_threads) {
+  for (int i = tid; i < n; i += n_threads)
+    if (obj_cat(s, i) == RECTANGLE) f[i] = rect_frame(s, obj_off(s, i));
+}
+
+__device__ __forceinline__ RectFrame row_frame(const Scene& s, const Frames& fr, int row, int off) {
+  return row < fr.n ? fr.f[row] : rect_frame(s, off);
+}
+
+// The t-only tests of table row i for ray `a` where `with_a` and ray `b`
+// where `with_b` (MAX_DISTANCE where not), in one dispatch: each branch tests
+// both rays with the row's parameters, read once.
+template <bool ALL>
+__device__ __forceinline__ void object_t2(const Scene& s, const Frames& fr, int i, bool with_a,
+                                          const Ray& a, bool with_b, const Ray& b, float& ta,
+                                          float& tb) {
+  const int cat = obj_cat(s, i), off = obj_off(s, i);
+  V3 x, y;
+  ta = tb = MAX_DISTANCE;
+  auto both = [&](auto t) {
+    if (with_a) ta = t(a);
+    if (with_b) tb = t(b);
+  };
+  if (cat == SPHERE) return both([&](const Ray& r) { return sphere_t(s, off, r.o, r.d, x, y); });
+  if (cat == RECTANGLE) {
+    const RectFrame f = row_frame(s, fr, i, off);
+    return both([&](const Ray& r) { return rect_t(s, off, f, r.o, r.d, x); });
+  }
+  if (!ALL || cat == CORNELLBOX)
+    return both([&](const Ray& r) { return cornell_t_inv(s, off, r.o, r.inv); });
+  switch (cat) {
+    case CUBE: return both([&](const Ray& r) { return cube_t_inv(s, off, r.o, r.inv); });
+    case CONE: return both([&](const Ray& r) { return cone_t(s, off, r.o, r.d, x, y); });
+    case CYLINDER: return both([&](const Ray& r) { return cylinder_t(s, off, r.o, r.d, x, y); });
+    case DISK: return both([&](const Ray& r) { return disk_t(s, off, r.o, r.d, x); });
+    case HYPERBOLOID:
+      return both([&](const Ray& r) { return hyperboloid_t(s, off, r.o, r.d, x, y); });
+    case PARABOLOID:
+      return both([&](const Ray& r) { return paraboloid_t(s, off, r.o, r.d, x, y); });
+  }
+}
+
+// cluster_possible with the ray's reciprocal.
+__device__ __forceinline__ bool cluster_reach(const Scene& s, int c, const Ray& r, float bound) {
+  const float* b = s.box + 6 * c;
+  float tn, tf;
+  slab_inv(r.o, r.inv, V3{b[0], b[1], b[2]}, V3{b[3], b[4], b[5]}, tn, tf);
+  return tn < tf && tf > EPSILON && tn < bound;
+}
+
+// K1's fold: closest's row for ray `a` and, where `want_b` (SHADOW builds),
+// occluded's bit for ray `b` below `max_b` (in `occ`), in one pass over the
+// rows in fold order.  `a` keeps closest's strict < (a tie keeps the earlier
+// row); `b`'s bit is an OR over the rows, which no order changes, and its
+// test stops once set.  With the cull each ray keeps its own cluster test
+// (best_t for `a`, max_b for `b`), as in closest and occluded.  Without
+// `want_a` (a shadow ray with no next ray) `a`'s result is not used: the
+// rows before the clusters test it all the same (a branch there cost K1
+// 2-3% on an H100), the clusters skip it.
+template <bool ALL, bool CULL, bool SHADOW = true>
+__device__ __forceinline__ int fold(const Scene& s, const Frames& fr, bool want_a, const Ray& a,
+                                    bool want_b, const Ray& b, float max_b, bool& occ) {
+  float best_t = MAX_DISTANCE;
+  int best = -1;
+  occ = false;
+  auto test = [&](int i, bool for_a, bool for_b) {
+    float ta, tb;
+    object_t2<ALL>(s, fr, i, for_a, a, for_b, b, ta, tb);
+    if (for_a && ta < best_t) {
+      best_t = ta;
+      best = i;
+    }
+    if (for_b && tb > EPSILON && tb < max_b) occ = true;
+  };
+  want_b = SHADOW && want_b;
+  const bool cull = CULL && s.box;
+  const int end = cull ? s.n_plain : s.n_obj;
+  for (int i = 0; i < end; ++i) test(i, true, want_b && !occ);
+  if (!cull) return best;
+  int c = 0;
+  for (int g = 0; g < s.n_groups; ++g) {
+    int first = __ldg(s.group + 2 * g), count = __ldg(s.group + 2 * g + 1);
+    for (int k0 = 0; k0 < count; k0 += CLUSTER, ++c) {
+      bool pa = want_a && cluster_reach(s, c, a, best_t);
+      bool pb = want_b && !occ && cluster_reach(s, c, b, max_b);
+      if (!pa && !pb) continue;
+      int stop = first + min(k0 + CLUSTER, count);
+      for (int i = first + k0; i < stop; ++i) test(i, pa, pb && !occ);
+    }
+  }
+  return best;
+}
+
+// object_hit with the staged frames and the ray's reciprocal.
+template <bool ALL = true>
+__device__ Hit object_hit(const Scene& s, const Frames& fr, int i, const Ray& r) {
+  int cat = obj_cat(s, i), off = obj_off(s, i);
+  if (cat == SPHERE) return sphere_hit(s, off, r.o, r.d);
+  if (cat == RECTANGLE) return rect_hit(s, off, row_frame(s, fr, i, off), r.o, r.d);
+  if (!ALL || cat == CORNELLBOX) return cornell_hit(s, off, r.o, r.d, r.inv);
+  switch (cat) {
+    case CUBE: return cube_hit(s, off, r.o, r.d, r.inv);
+    case CONE: case CYLINDER: return frustum_hit(s, off, cat, r.o, r.d);
+    case DISK: return disk_hit(s, off, r.o, r.d);
+    case HYPERBOLOID: return hyperboloid_hit(s, off, r.o, r.d);
+    case PARABOLOID: return paraboloid_hit(s, off, r.o, r.d);
+  }
+  return cornell_hit(s, off, r.o, r.d, r.inv);
+}
+
 // ---------------------------------------------------------------- BSDF ----
 __device__ __forceinline__ float sin_theta(V3 w) { return sqrtf(fmaxf(fmaxf(F(1.0) - w.z * w.z, 0.f), F(1e-12))); }
 __device__ __forceinline__ float cos_phi(V3 w) {
@@ -860,27 +1026,29 @@ struct Bounce {
   V3 n_l, to_l, wl, wsh, wl_local, rad, f_light;
 };
 
-// One bounce of the path from `st`: closest hit, surface color, BSDF sample,
-// next-event estimation with a shadow ray.  Returns false on a miss (the path
-// adds nothing more); otherwise adds the bounce's radiance to `e` and
-// advances `st`.  The bounce's two discrete decisions land in `v`: the
-// winner's table row (`v.obj`) and the shadow ray's bit (`v.occ`).
-// REPLAY (K2's reverse sweep, adjoint.cuh) takes both from `v` as an earlier
-// call on the same state recorded them, in place of the closest-hit fold and
-// the shadow scan; every other value is computed by the same code in the same
-// order, so a replayed bounce is the recorded one bit for bit.  K1 does not
-// replay (REPLAY false).
-template <bool ALL = true, bool CULL = true, bool MATS = true, int STRIP = 0, bool REPLAY = false>
-__device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uint32_t seed,
-                                       uint32_t sample, int bounce_idx, uint32_t row, uint32_t col,
-                                       Bounce& v) {
-  int i;
-  if constexpr (REPLAY) i = v.obj;
-  else i = closest<ALL, CULL>(s, st.ro, st.rd);
-  if (i < 0) return false;
+// A bounce in parts around its shadow ray, so that K1 can test the shadow
+// ray later, together with the path's next ray (render_block.cuh); `bounce`
+// runs them in sequence with the shadow scan between them.
+//
+// The values of bounce_open that the later parts read, kept where the caller
+// keeps its own (registers), not only in `v`.
+struct Shading {
+  V3 n, ss, ts, wo, sc, wi, weight;
+};
+
+// bounce_open: the bounce from `st` whose closest hit is table row i (>= 0):
+// hit record, shading frame, surface color, BSDF sample and the emission it
+// adds (`contrib`).  STAGED (K1): rectangle frames from `fr` and the ray's
+// reciprocal `inv`; otherwise (K2) both computed where used.
+template <bool ALL = true, bool MATS = true, int STRIP = 0, bool STAGED = false>
+__device__ __forceinline__ void bounce_open(const Scene& s, const Frames& fr, const PathState& st,
+                                            int i, V3 inv, uint32_t seed, uint32_t sample,
+                                            int bounce_idx, uint32_t row, uint32_t col, Bounce& v,
+                                            Shading& sh, V3& contrib) {
   V3 rd = st.rd;
   v.obj = i;
-  v.h = object_hit<ALL>(s, i, st.ro, rd);
+  if constexpr (STAGED) v.h = object_hit<ALL>(s, fr, i, Ray{st.ro, rd, inv});
+  else v.h = object_hit<ALL>(s, i, st.ro, rd);
   const Hit& h = v.h;
   const int* o = s.obj + OBJ_INTS * i;
   int off = __ldg(o + 1), mat_row = __ldg(o + 2), tex_row = __ldg(o + 3);
@@ -955,9 +1123,91 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
   v.weight_raw = weight;
   weight = clip01(weight);
   v.weight = weight;
+  sh = {n, ss, ts, wo, sc, wi, weight};
 
   v.emit_on = face && !(st.skip_emission && v.emissive);
-  V3 contrib = v.emit_on ? emission : V3{0.f, 0.f, 0.f};
+  contrib = v.emit_on ? emission : V3{0.f, 0.f, 0.f};
+}
+
+// The light sample of a bounce that samples one (matte, not emissive; its
+// uniforms lu1, lu2, lr), up to its shadow ray: from v.h.p + sh.n * 1e-4
+// along v.wsh, below v.dist * (1 - 1e-3).
+template <bool STAGED = false>
+__device__ __forceinline__ void light_sample(const Scene& s, const Frames& fr, Bounce& v,
+                                             const Shading& sh, float lu1, float lu2, float lr) {
+  int lidx = min((int)(lr * (float)s.n_light), s.n_light - 1);
+  const int* l = s.light + 3 * lidx;
+  int lrow = __ldg(l + 1);
+  int loff = obj_off(s, lrow);
+  v.loff = loff;
+  v.lem = __ldg(l + 2);
+  v.lu1 = lu1;
+  v.lu2 = lu2;
+  // AREA light over a RECTANGLE: point, normal, area pdf
+  RectFrame f;
+  if constexpr (STAGED) f = row_frame(s, fr, lrow, loff);
+  else f = rect_frame(s, loff);
+  v.lf = f;
+  V3 p_l = P3(s, loff) + f.ex * lu1 + f.ey * lu2;
+  if constexpr (STAGED) v.pdf_a = F(1.0) / fmaxf(f.len_x * f.len_y, F(1e-12));  // length(ex) ...
+  else v.pdf_a = F(1.0) / fmaxf(length(f.ex) * length(f.ey), F(1e-12));
+  v.n_l = f.n * P(s, loff + 9);
+  v.to_l = p_l - v.h.p;
+  v.d2 = fmaxf(dot(v.to_l, v.to_l), F(1e-12));
+  v.wl = v.to_l * (F(1.0) / sqrtf(v.d2));
+  v.cos_l = fmaxf(dot(v.n_l, -v.wl), 0.f);
+  v.cos_s = fmaxf(dot(v.wl, sh.n), 0.f);
+  v.rad = P3(s, v.lem) * (v.cos_l * v.cos_s / (v.d2 * v.pdf_a) * (float)s.n_light);
+  // one shadow ray toward the sample
+  v.dist = length(v.to_l);
+  v.wsh = v.to_l * (F(1.0) / fmaxf(v.dist, F(1e-12)));
+}
+
+// The light sample's BSDF value toward the shadow ray (whatever the ray's
+// bit): v.wl_local, v.f_light; returns whether the light lies in wo's
+// hemisphere.
+__device__ __forceinline__ bool nee_light(Bounce& v, const Shading& sh) {
+  v.wl_local = world_to_local(v.wsh, sh.n, sh.ss, sh.ts);
+  bool lit = sh.wo.z * v.wl_local.z > F(1e-5);
+  v.f_light = lit ? matte_f(v.kd, v.sigma, sh.sc, sh.wo, v.wl_local) : V3{0.f, 0.f, 0.f};
+  return lit;
+}
+
+// The path's next state: throughput, the next ray, the emission skip.
+__device__ __forceinline__ void advance(PathState& st, Bounce& v, const Shading& sh, bool did_nee) {
+  st.thr = st.thr * sh.weight;
+  V3 wi_world = local_to_world(sh.wi, sh.n, sh.ss, sh.ts);
+  v.wi_world = wi_world;
+  float outdot = dot(sh.n, wi_world);
+  v.offs = outdot > EPSILON ? F(1e-4) : F(-1e-4);
+  st.ro = v.h.p + sh.n * v.offs;
+  st.rd = wi_world;
+  st.skip_emission = did_nee;
+}
+
+// One bounce of the path from `st`, as K2 runs it: closest hit, bounce_open,
+// the light sample and its shadow scan, the radiance and the next state.
+// Returns false on a miss (the path adds nothing more); otherwise adds the
+// bounce's radiance to `e` and advances `st`.  The bounce's two discrete
+// decisions land in `v`: the winner's table row (`v.obj`) and the shadow
+// ray's bit (`v.occ`).  REPLAY (K2's reverse sweep, adjoint.cuh) takes both
+// from `v` as an earlier call on the same state recorded them, in place of
+// the closest-hit fold and the shadow scan; every other value is computed by
+// the same code in the same order, so a replayed bounce is the recorded one
+// bit for bit.
+template <bool ALL = true, bool CULL = true, bool MATS = true, int STRIP = 0, bool REPLAY = false>
+__device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uint32_t seed,
+                                       uint32_t sample, int bounce_idx, uint32_t row, uint32_t col,
+                                       Bounce& v) {
+  int i;
+  if constexpr (REPLAY) i = v.obj;
+  else i = closest<ALL, CULL>(s, st.ro, st.rd);
+  if (i < 0) return false;
+  const Frames none{nullptr, 0};
+  Shading sh;
+  V3 contrib;
+  bounce_open<ALL, MATS, STRIP>(s, none, st, i, V3{0.f, 0.f, 0.f}, seed, sample, bounce_idx, row,
+                                col, v, sh, contrib);
   bool did_nee = false;
   v.nee_on = false;
   if constexpr (!REPLAY) v.occ = false;
@@ -966,52 +1216,21 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
     draw3<STRIP>(stream_id(seed, sample, bounce_idx, TAG_LIGHT_U), row, col, lu1, lu2, lr);
     did_nee = v.is_matte && !v.emissive;
     if (did_nee && (STRIP & STRIP_NO_NEE) == 0) {
-      int lidx = min((int)(lr * (float)s.n_light), s.n_light - 1);
-      const int* l = s.light + 3 * lidx;
-      int loff = obj_off(s, __ldg(l + 1));
-      v.loff = loff;
-      v.lem = __ldg(l + 2);
-      v.lu1 = lu1;
-      v.lu2 = lu2;
-      // AREA light over a RECTANGLE: point, normal, area pdf
-      RectFrame f = rect_frame(s, loff);
-      v.lf = f;
-      V3 p_l = P3(s, loff) + f.ex * lu1 + f.ey * lu2;
-      v.pdf_a = F(1.0) / fmaxf(length(f.ex) * length(f.ey), F(1e-12));
-      v.n_l = f.n * P(s, loff + 9);
-      v.to_l = p_l - h.p;
-      v.d2 = fmaxf(dot(v.to_l, v.to_l), F(1e-12));
-      v.wl = v.to_l * (F(1.0) / sqrtf(v.d2));
-      v.cos_l = fmaxf(dot(v.n_l, -v.wl), 0.f);
-      v.cos_s = fmaxf(dot(v.wl, n), 0.f);
-      v.rad = P3(s, v.lem) * (v.cos_l * v.cos_s / (v.d2 * v.pdf_a) * (float)s.n_light);
-      // one shadow ray toward the sample
-      v.dist = length(v.to_l);
-      v.wsh = v.to_l * (F(1.0) / fmaxf(v.dist, F(1e-12)));
+      light_sample(s, none, v, sh, lu1, lu2, lr);
       bool occ = false;
       if constexpr (REPLAY) occ = v.occ;
       else if constexpr ((STRIP & STRIP_NO_SHADOW) == 0)
-        occ = occluded<ALL, CULL>(s, h.p + n * F(1e-4), v.wsh, v.dist * F(1.0 - 1e-3));
+        occ = occluded<ALL, CULL>(s, v.h.p + sh.n * F(1e-4), v.wsh, v.dist * F(1.0 - 1e-3));
       if constexpr (!REPLAY) v.occ = occ;
       V3 direct = v.rad * (occ ? 0.f : F(1.0));
-      v.wl_local = world_to_local(v.wsh, n, ss, ts);
-      bool lit = wo.z * v.wl_local.z > F(1e-5);
-      v.f_light = lit ? matte_f(v.kd, v.sigma, sc, wo, v.wl_local) : V3{0.f, 0.f, 0.f};
+      bool lit = nee_light(v, sh);
       v.nee_on = lit && !occ;
       contrib = contrib + direct * v.f_light;
     }
   }
   v.contrib = contrib;
   e = e + st.thr * contrib;
-  st.thr = st.thr * weight;
-
-  V3 wi_world = local_to_world(wi, n, ss, ts);
-  v.wi_world = wi_world;
-  float outdot = dot(n, wi_world);
-  v.offs = outdot > EPSILON ? F(1e-4) : F(-1e-4);
-  st.ro = h.p + n * v.offs;
-  st.rd = wi_world;
-  st.skip_emission = did_nee;
+  advance(st, v, sh, did_nee);
   return true;
 }
 

@@ -15,7 +15,9 @@
 // starts at the world origin, as in the TPU kernel.  Bound by the FP32 work
 // of the closest-hit fold (every object tested on every bounce; no cull, as
 // the TPU kernel's fold has none) and the winner's hit record.  Design: K1's
-// thread per pixel and its `closest`/`object_hit`; the sample loop starts
+// thread per pixel and its fold and hit record (path.cuh `fold` for one ray,
+// `object_hit` with the block's staged rectangle frames and the ray's slab
+// reciprocal); the sample loop starts
 // each sample from the camera ray through an empty asm statement that the
 // compiler must assume changes it, so the loop-invariant bounce loop is run
 // spp times and not once.
@@ -51,10 +53,16 @@ constexpr int BLOCK = 256;
 
 // ------------------------------------------------------------------ K5a ----
 template <bool ALL>
-__global__ void __launch_bounds__(BLOCK) isect_only_kernel(Scene s, float* __restrict__ out,
-                                                           int height, int width, int spp,
-                                                           int max_bounces, int row0,
-                                                           int image_height) {
+__global__ void __launch_bounds__(BLOCK) isect_only_kernel(Scene s, int n_frames,
+                                                           float* __restrict__ out, int height,
+                                                           int width, int spp, int max_bounces,
+                                                           int row0, int image_height) {
+  // K1's staged frames, before any thread leaves
+  extern __shared__ float smem[];
+  RectFrame* frames = reinterpret_cast<RectFrame*>(smem);
+  stage_frames(s, frames, n_frames, threadIdx.y * blockDim.x + threadIdx.x, blockDim.x * blockDim.y);
+  __syncthreads();
+  const Frames fr{frames, n_frames};
   int col = blockIdx.x * blockDim.x + threadIdx.x;
   int lrow = blockIdx.y * blockDim.y + threadIdx.y;
   if (col >= width || lrow >= height) return;
@@ -74,11 +82,13 @@ __global__ void __launch_bounds__(BLOCK) isect_only_kernel(Scene s, float* __res
     asm volatile("" : "+f"(ro.x), "+f"(ro.y), "+f"(ro.z), "+f"(rd.x), "+f"(rd.y), "+f"(rd.z));
     float a = 0.f;
     for (int b = 0; b < max_bounces; ++b) {
-      int i = closest<ALL, false>(s, ro, rd);
+      const Ray r = make_ray(ro, rd);
+      bool unused_occ;
+      int i = fold<ALL, false, false>(s, fr, true, r, false, r, 0.f, unused_occ);
       float t = MAX_DISTANCE;
       V3 p = {0.f, 0.f, 0.f}, ng = {0.f, 0.f, 0.f};  // the miss record
       if (i >= 0) {
-        Hit h = object_hit<ALL>(s, i, ro, rd);
+        Hit h = object_hit<ALL>(s, fr, i, r);
         t = h.t;
         p = h.p;
         ng = h.ng;
@@ -167,17 +177,20 @@ __global__ void __launch_bounds__(BLOCK) alu_peak_ilp8_kernel(float* __restrict_
 // argument: the kernel it replaces ignores it.
 extern "C" int sail_isect_only(const float* params, const int* table, int n_obj, int n_plain,
                                int n_groups, int n_mat, int n_tex, int n_light, int cam,
-                               int all_shapes, float* out, int height, int width, int spp,
-                               int max_bounces, int row0, int image_height, void* stream) {
+                               int all_shapes, int n_frames, float* out, int height, int width,
+                               int spp, int max_bounces, int row0, int image_height,
+                               void* stream) {
   Scene s = make_scene(params, table, n_obj, n_plain, n_groups, n_mat, n_tex, n_light, cam);
   dim3 block(16, 16);
   dim3 grid((width + 15) / 16, (height + 15) / 16);
+  n_frames = staged_frames(0, n_frames);
+  size_t smem = k1_smem_bytes(0, n_frames);
   if (all_shapes)
-    isect_only_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        s, out, height, width, spp, max_bounces, row0, image_height);
+    isect_only_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
+        s, n_frames, out, height, width, spp, max_bounces, row0, image_height);
   else
-    isect_only_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        s, out, height, width, spp, max_bounces, row0, image_height);
+    isect_only_kernel<false><<<grid, block, smem, (cudaStream_t)stream>>>(
+        s, n_frames, out, height, width, spp, max_bounces, row0, image_height);
   return (int)cudaGetLastError();
 }
 
@@ -215,14 +228,16 @@ extern "C" int sail_alu_peak_ilp8(float* out, int rows, int cols, int grid, int 
 extern "C" int sail_render_block_stripped(int strip, const float* params, const int* table,
                                           int n_obj, int n_plain, int n_groups, int n_mat,
                                           int n_tex, int n_light, int cam, int all_shapes,
-                                          int materials, int n_clusters, float* out_x,
-                                          float* out_y, float* out_z, int height, int width,
-                                          int spp, int seed, int sample0, int max_bounces,
-                                          int row0, int image_height, void* stream) {
+                                          int materials, int n_clusters, int n_frames,
+                                          float* out_x, float* out_y, float* out_z, int height,
+                                          int width, int spp, int seed, int sample0,
+                                          int max_bounces, int row0, int image_height,
+                                          void* stream) {
   if (all_shapes || materials || n_clusters) return (int)cudaErrorInvalidValue;
   Scene s = make_scene(params, table, n_obj, n_plain, n_groups, n_mat, n_tex, n_light, cam);
   dim3 block(16, 16);
   dim3 grid((width + 15) / 16, (height + 15) / 16);
+  n_frames = staged_frames(0, n_frames);
   using Kernel = decltype(&render_block_kernel<false, false, false, STRIP_CONST_RNG>);
   Kernel kernel;
   switch (strip) {
@@ -234,8 +249,8 @@ extern "C" int sail_render_block_stripped(int strip, const float* params, const 
     case STRIP_NO_NEE: kernel = render_block_kernel<false, false, false, STRIP_NO_NEE>; break;
     default: return (int)cudaErrorInvalidValue;
   }
-  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(s, 0, out_x, out_y, out_z, height, width, spp,
-                                                   (uint32_t)seed, (uint32_t)sample0, max_bounces,
-                                                   row0, image_height);
+  kernel<<<grid, block, k1_smem_bytes(0, n_frames), (cudaStream_t)stream>>>(
+      s, 0, n_frames, out_x, out_y, out_z, height, width, spp, (uint32_t)seed, (uint32_t)sample0,
+      max_bounces, row0, image_height);
   return (int)cudaGetLastError();
 }

@@ -66,6 +66,7 @@ class Table(NamedTuple):
     all_shapes: bool   # a shape other than the benchmark scenes' three
     materials: bool    # a material beyond matte and mirror, or a texture
     #                    beyond a uniform color
+    n_frames: int      # rows up to the last rectangle: K1 stages their frames
 
 
 # The shapes K1's smaller build takes (path.cuh's `ALL`): those of the
@@ -110,11 +111,15 @@ def scene_table(static: SceneStatic) -> Table:
                            off.lights):
         table += [cat, row_of[obj], o]
     n_clusters = sum(-(-len(idxs) // isect.CLUSTER) for _, idxs in batched)
+    n_frames = 1 + max((r for r, i in enumerate(order)
+                        if static.object_categories[i] == C.RECTANGLE),
+                       default=-1)
     return Table(tuple(table), off, order, len(plain), len(batched),
                  n_clusters,
                  not _FEW_SHAPES.issuperset(static.object_categories),
                  not (_FEW_MATERIALS.issuperset(static.material_categories)
-                      and set(static.texture_categories) <= {C.UNIFORM_COLOR}))
+                      and set(static.texture_categories) <= {C.UNIFORM_COLOR}),
+                 n_frames)
 
 
 @functools.lru_cache(maxsize=64)
@@ -167,7 +172,7 @@ def _bind(source: str, name: str, argtypes):
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # The C entries' argument types, in their order (csrc/*.cu `extern "C"`).
-K1_ARGTYPES = [_PTR] * 2 + [_INT] * 10 + [_PTR] * 3 + [_INT] * 8 + [_PTR]
+K1_ARGTYPES = [_PTR] * 2 + [_INT] * 11 + [_PTR] * 3 + [_INT] * 8 + [_PTR]
 K2_ARGTYPES = [_PTR] * 2 + [_INT] * 11 + [_PTR] * 4 + [_INT] * 8 + [_PTR]
 REDUCE_ARGTYPES = [_PTR, _INT, _INT, _PTR, _PTR]
 MIN_BLOCKS_ARGTYPES = [_INT] * 4
@@ -222,7 +227,7 @@ def render_block(params: torch.Tensor, static: SceneStatic, height: int,
     CPU) does not cull.  `early_exit` (K1-ee, `render_block_pallas(
     early_exit=True)`): the plain version skips the bounces no ray of its
     batch needs; K1 needs no other build for it, as each thread already
-    leaves its bounce loop when its path misses or dies, a finer form of
+    starts its next sample when its path misses or dies, a finer form of
     the TPU kernel's tile-level skip.  Either way the image is the same
     bit for bit."""
     image_height = height if image_height is None else image_height
@@ -248,7 +253,7 @@ def render_block(params: torch.Tensor, static: SceneStatic, height: int,
         err = fn(
             params.data_ptr(), table_t.data_ptr(), *_counts(static),
             off.camera, int(table.all_shapes), int(table.materials),
-            n_clusters, out[0].data_ptr(),
+            n_clusters, table.n_frames, out[0].data_ptr(),
             out[1].data_ptr(), out[2].data_ptr(), height, width, spp,
             _int32(seed), _int32(sample0), max_bounces, row0, image_height,
             torch.cuda.current_stream(dev).cuda_stream)

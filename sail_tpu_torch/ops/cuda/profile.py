@@ -59,7 +59,7 @@ MIXES = {"fma": 0, "integrator_mix": 1}
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # The C entries' argument types, in their order (csrc/profile.cu).
-ISECT_ARGTYPES = [_PTR] * 2 + [_INT] * 8 + [_PTR] + [_INT] * 6 + [_PTR]
+ISECT_ARGTYPES = [_PTR] * 2 + [_INT] * 9 + [_PTR] + [_INT] * 6 + [_PTR]
 ALU_ARGTYPES = [_INT, _PTR] + [_INT] * 4 + [_PTR]
 ALU_ILP8_ARGTYPES = [_PTR] + [_INT] * 4 + [_PTR]
 STRIPPED_ARGTYPES = [_INT] + mk.K1_ARGTYPES
@@ -129,12 +129,12 @@ def isect_only_block(params: torch.Tensor, static: SceneStatic, height: int,
                                 max_bounces, row0, image_height)
     dev = params.device
     out = torch.empty((height, width), dtype=torch.float32, device=dev)
-    n_obj, n_plain, n_groups, n_mat, n_tex, n_light = mk._counts(static)
+    table = mk.scene_table(static)
     _launch("sail_isect_only", dev, params.data_ptr(),
-            mk._device_table(static, dev).data_ptr(), n_obj, n_plain,
-            n_groups, n_mat, n_tex, n_light, off.camera,
-            int(mk.scene_table(static).all_shapes), out.data_ptr(), height,
-            width, spp, max_bounces, row0, image_height)
+            mk._device_table(static, dev).data_ptr(), *mk._counts(static),
+            off.camera, int(table.all_shapes), table.n_frames,
+            out.data_ptr(), height, width, spp, max_bounces, row0,
+            image_height)
     isect_only_block.launches += 1
     return out
 
@@ -354,7 +354,8 @@ def render_block_stripped(strip: str, params: torch.Tensor,
     out = torch.empty((3, height, width), dtype=torch.float32, device=dev)
     _launch("sail_render_block_stripped", dev, STRIPS[strip],
             params.data_ptr(), mk._device_table(static, dev).data_ptr(),
-            *mk._counts(static), off.camera, 0, 0, 0, out[0].data_ptr(),
+            *mk._counts(static), off.camera, 0, 0, 0, table.n_frames,
+            out[0].data_ptr(),
             out[1].data_ptr(), out[2].data_ptr(), height, width, spp,
             mk._int32(seed), mk._int32(sample0), max_bounces, row0,
             image_height)

@@ -1,40 +1,55 @@
-"""K2 against an earlier tree's K2 on the card, and the SASS of the kernels a
-change to K2 must leave as they were.
+"""K1, K5a and K2 against an earlier tree's on the card, and the SASS of the
+kernels a change must leave as they were.
 
     mkdir -p build/parent_csrc
     for f in $(git ls-tree --name-only <rev> sail_tpu_torch/csrc/); do
         git show <rev>:$f > build/parent_csrc/$(basename $f); done
-    python3 -m sail_tpu_torch.tools.k2_compare --parent build/parent_csrc [--out K2_COMPARE.json]
+    python3 -m sail_tpu_torch.tools.k2_compare --parent build/parent_csrc \
+        [--out COMPARE.json] [--no-k2]
 
-1. Builds the parent's megakernel.cu, megakernel_grad.cu and profile.cu with
-   `build.NVCC_FLAGS` into build/parent/, and this tree's through
+1. Builds the parent's megakernel.cu, megakernel_grad.cu, profile.cu and
+   profile_grad.cu with `build.NVCC_FLAGS` into build/parent/ (reused while
+   the parent's sources are the same), and this tree's through
    `utils/build.py`, one nvcc each, all started together.
-2. SASS: `cuobjdump -sass` of both trees' libraries; each kernel of K1
-   (`render_block_kernel<...>`, the eight production builds and the four
-   stripped ones) and K5a (`isect_only_kernel<...>`) that both trees build
-   must have the same instructions (symbols `_Z...` masked: they carry the
-   file's anonymous-namespace hash) and the same `-Xptxas -v` resources.
-3. K2 at the fwd+bwd step's arguments (1024² x 64 spp x 5 bounces, the
+2. SASS: `cuobjdump -sass` of both trees' libraries.  Each kernel of K2
+   (`render_grad_kernel<...>`, production and stripped, and its reduce) and
+   of K5b/K5c (`alu_peak_kernel<...>`, `alu_peak_ilp8_kernel`) that both
+   trees build must have the same instructions (symbols `_Z...` masked: they
+   carry the file's anonymous-namespace hash) and the same `-Xptxas -v`
+   resources, or it is listed under `differ`.  K1's builds
+   (`render_block_kernel<...>`, production and stripped) and K5a's
+   (`isect_only_kernel<...>`) are listed with each tree's registers, stack
+   and spills, and whether their SASS changed.
+3. K1 on the rows of PERF.md's kernel table at 1024² x 5 bounces: config 2,
+   config 3, the open twin (K1-ee), 16 spheres and 64 (the cull) at 64 spp,
+   256 spheres at 1 spp, config 2 through each of the four stripped builds,
+   and K5a on config 2 at 64 spp: the parent's (its own C entries, bound
+   from its source) and this tree's, timed in turns (ROUNDS x parent, new,
+   new, parent; CUDA events, one call each after a warm-up); the outputs
+   bit for bit, else their relative L-inf.
+4. K2 at the fwd+bwd step's arguments (1024² x 64 spp x 5 bounces, the
    cotangent 1/(H·W·spp) of `mean(x + y + z)` through the Function) on
    config 2, config 3 and 64 spheres, and at 1 spp on 256 spheres (the
-   many-object steps of chip_smoke.py): the parent's K2 (its own C entry and
-   reduce, its build for the scene's parameters) and this tree's, timed in
-   turns (parent, new, new, parent; CUDA events, one call each after a
-   warm-up); the gradients bit for bit, else their relative L-inf.
-Prints and writes one JSON object.  Needs the card and nvcc; imports
-nothing of JAX.
+   many-object steps of chip_smoke.py), in turns as K1 (skipped with
+   `--no-k2`, which also skips K2's builds and SASS).
+Prints and writes one JSON object; its `summary` lists the rows whose
+output is not the parent's bit for bit, the rows more than 2% slower than
+the parent (median against median), and the kernels whose SASS must not
+change and did.  Needs the card and nvcc; imports nothing of JAX.
 
-The parent's K2 is bound from its own source: the parameters of its
-`sail_render_grad_block`, read by name, each given this tree's value of that
-name (`parent_args`); a parameter this tool does not know stops it.  Its
-build (`cap`) comes from its `sail_grad_limits`: block columns and rows,
-bounces, the number of local array sizes, the sizes, then, where the parent
-has the shared-memory build, the most parameters that build takes.
+A parent's entry is bound from its own source: the parameters of its
+`sail_render_block`, `sail_render_block_stripped`, `sail_isect_only` and
+`sail_render_grad_block`, read by name, each given this tree's value of
+that name (`parent_args`); a parameter this tool does not know stops it.
+Its K2 build (`cap`) comes from its `sail_grad_limits`: block columns and
+rows, bounces, the number of local array sizes, the sizes, then, where the
+parent has the shared-memory build, the most parameters that build takes.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -46,20 +61,37 @@ import torch
 from sail_tpu_torch import scenes
 from sail_tpu_torch.core.vecmath import Vec3
 from sail_tpu_torch.ops.cuda import megakernel as mk
+from sail_tpu_torch.ops.cuda import profile as pf
 from sail_tpu_torch.tools.many_object_bench import card
 from sail_tpu_torch.utils import build
 
-SOURCES = ("megakernel", "megakernel_grad", "profile")
-# the kernels whose SASS must not change: K1's builds (production and
-# stripped) and K5a
-SAME_SASS = re.compile(r"render_block_kernel<|isect_only_kernel<")
+SOURCES = ("megakernel", "megakernel_grad", "profile", "profile_grad")
+K2_SOURCES = ("megakernel_grad", "profile_grad")
+# the kernels whose SASS must not change (K2's builds and reduce, K5b, K5c),
+# and those K1's redesign changes (K1's builds, K5a), listed with their
+# resources
+SAME_SASS = re.compile(r"render_grad_kernel<|reduce_grad_rows_kernel|"
+                       r"alu_peak_kernel<|alu_peak_ilp8_kernel")
+K1_SASS = re.compile(r"render_block_kernel<|isect_only_kernel<")
 SIZE, SPP, BOUNCES = 1024, 64, 5
+ROUNDS = 3
 CASES = (("cornell_mirror", SPP), ("material_demo", SPP), ("spheres64", SPP),
          ("spheres256", 1))
+# K1's rows: (label, scene, spp, strip or None), and K5a's scene
+K1_CASES = (("config2", "cornell_mirror", SPP, None),
+            ("config3", "material_demo", SPP, None),
+            ("k1ee_open", "material_demo_open", SPP, None),
+            ("spheres16", "spheres16", SPP, None),
+            ("spheres64_cull", "spheres64", SPP, None),
+            ("spheres256_cull", "spheres256", 1, None),
+            *((f"config2_{strip}", "cornell_mirror", SPP, strip)
+              for strip in pf.STRIPS))
+K5A_SCENE = "cornell_mirror"
+SLOWER = 1.02   # a row more than 2% slower than the parent is listed
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the parameters of a K2 entry that are pointers; every other is an int
-K2_POINTERS = frozenset(("params", "table", "gx", "gy", "gz", "rows",
-                         "stream"))
+# the parameters of an entry that are pointers; every other is an int
+POINTERS = frozenset(("params", "table", "gx", "gy", "gz", "rows", "out",
+                      "out_x", "out_y", "out_z", "stream"))
 
 
 def entry_params(source: str, name: str = "sail_render_grad_block") -> list:
@@ -78,15 +110,15 @@ def entry_params(source: str, name: str = "sail_render_grad_block") -> list:
 def parent_args(params: list, values: dict) -> tuple:
     """(argtypes, arguments) for an entry of `params` (`entry_params`),
     each argument `values[name]`.  Raises for a parameter this tool has no
-    value for, or one declared a pointer where K2_POINTERS says an int or
-    the other way round."""
+    value for, or one declared a pointer where POINTERS says an int or the
+    other way round."""
     unknown = [n for _, n in params if n not in values]
     if unknown:
-        raise ValueError(f"the parent's K2 entry takes {unknown}, which this "
+        raise ValueError(f"the parent's entry takes {unknown}, which this "
                          f"tool cannot give it")
-    wrong = [n for is_ptr, n in params if is_ptr != (n in K2_POINTERS)]
+    wrong = [n for is_ptr, n in params if is_ptr != (n in POINTERS)]
     if wrong:
-        raise ValueError(f"the parent's K2 entry takes {wrong} as another "
+        raise ValueError(f"the parent's entry takes {wrong} as another "
                          f"kind (pointer or int) than this tool's")
     return ([_P if is_ptr else _I for is_ptr, _ in params],
             [values[n] for _, n in params])
@@ -104,26 +136,33 @@ def parent_cap(limits: list, n_params: int) -> int:
     return mk.grad_cap(n_params, caps)
 
 
-def build_parent(parent_dir: str, out_dir: str) -> dict:
-    """Compile the parent's sources, all at once; {source: library}."""
+def build_parent(parent_dir: str, out_dir: str, names=SOURCES) -> dict:
+    """Compile the parent's sources, all at once, into libraries named
+    after a hash of the flags and the parent's files (an existing one is
+    reused); {source: library}."""
     os.makedirs(out_dir, exist_ok=True)
-    jobs = {}
-    for name in SOURCES:
-        lib = os.path.join(out_dir, f"lib{name}.so")
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib,
+    digest = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
+    for f in sorted(os.listdir(parent_dir)):
+        with open(os.path.join(parent_dir, f), "rb") as fh:
+            digest.update(f.encode() + fh.read())
+    tag = digest.hexdigest()[:16]
+    jobs, libs = {}, {}
+    for name in names:
+        lib = libs[name] = os.path.join(out_dir, f"lib{name}-{tag}.so")
+        if os.path.exists(lib):
+            continue
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib + ".tmp",
                os.path.join(parent_dir, f"{name}.cu")]
-        jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.PIPE,
-                                            text=True))
-    libs = {}
-    for name, (lib, proc) in jobs.items():
+        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+    for name, proc in jobs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building the parent's {name}:"
                                f"\n{out}\n{err}")
-        with open(lib + ".log", "w") as f:
+        with open(libs[name] + ".log", "w") as f:
             f.write(out + err)
-        libs[name] = lib
+        os.replace(libs[name] + ".tmp", libs[name])
     return libs
 
 
@@ -144,19 +183,25 @@ def sass(lib: str) -> dict:
 
 
 def compare_sass(parent_libs: dict, libs: dict) -> dict:
-    same, differ = [], []
-    for name in SOURCES:
+    """`same` and `differ`: the kernels of SAME_SASS both trees build;
+    `k1`: each K1 and K5a kernel's resources in both trees and whether its
+    SASS changed."""
+    same, differ, k1 = [], [], {}
+    for name in parent_libs:
         old, new = sass(parent_libs[name]), sass(libs[name])
         with open(parent_libs[name] + ".log") as f:
             old_res = build.parse_resource_usage(f.read())
         new_res = build.resource_usage(name)
-        for kernel in sorted(set(old) & set(new)):
-            if not SAME_SASS.match(kernel):
-                continue
-            equal = old[kernel] == new[kernel] \
-                and old_res.get(kernel) == new_res.get(kernel)
-            (same if equal else differ).append(kernel)
-    return {"same": same, "differ": differ}
+        for kernel in sorted(set(old) | set(new)):
+            if K1_SASS.match(kernel):
+                k1[f"{kernel} ({name})"] = {
+                    "parent": old_res.get(kernel), "new": new_res.get(kernel),
+                    "sass_changed": old.get(kernel) != new.get(kernel)}
+            elif SAME_SASS.match(kernel) and kernel in old and kernel in new:
+                equal = old[kernel] == new[kernel] \
+                    and old_res.get(kernel) == new_res.get(kernel)
+                (same if equal else differ).append(f"{kernel} ({name})")
+    return {"same": same, "differ": differ, "k1": k1}
 
 
 def _events(fn):
@@ -171,22 +216,100 @@ def _events(fn):
     return res, start.elapsed_time(end)
 
 
-def in_turns(a, b) -> dict:
-    """a, b, b, a, each timed once after one warm-up call of each; both
-    results compared."""
+def in_turns(a, b, rounds: int = ROUNDS) -> dict:
+    """`rounds` x (a, b, b, a), each timed once after one warm-up call of
+    each; both results compared."""
     a(), b()
-    ra, ta1 = _events(a)
-    rb, tb1 = _events(b)
-    _, tb2 = _events(b)
-    _, ta2 = _events(a)
+    ta, tb = [], []
+    for _ in range(rounds):
+        ra, t = _events(a)
+        ta.append(t)
+        rb, t = _events(b)
+        tb.append(t)
+        tb.append(_events(b)[1])
+        ta.append(_events(a)[1])
     diff = (ra - rb).abs()
-    return {"a_ms": [ta1, ta2], "b_ms": [tb1, tb2],
-            "a_median_ms": statistics.median([ta1, ta2]),
-            "b_median_ms": statistics.median([tb1, tb2]),
+    return {"a_ms": ta, "b_ms": tb,
+            "a_median_ms": statistics.median(ta),
+            "b_median_ms": statistics.median(tb),
             "bit_identical": bool(torch.equal(ra, rb)),
             "rel_linf": float(diff.max() / ra.abs().max()),
             "finite": bool(torch.isfinite(ra).all() and torch.isfinite(rb)
                            .all())}
+
+
+def _scene_values(params, static, dev) -> dict:
+    """The values every scene entry takes, by parameter name."""
+    t = mk.scene_table(static)
+    return dict(params=params.data_ptr(),
+                table=mk._device_table(static, dev).data_ptr(),
+                **dict(zip(("n_obj", "n_plain", "n_groups", "n_mat", "n_tex",
+                            "n_light"), mk._counts(static))),
+                cam=t.offsets.camera, all_shapes=int(t.all_shapes),
+                materials=int(t.materials), n_frames=t.n_frames,
+                height=SIZE, width=SIZE, seed=0, sample0=0,
+                max_bounces=BOUNCES, row0=0, image_height=SIZE,
+                stream=torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _bound(lib, source: str, name: str, values: dict):
+    """The parent's entry `name`, bound by the parameters its source
+    declares, called with `values`; raises on a failed launch."""
+    argtypes, args = parent_args(entry_params(source, name), values)
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"the parent's {name} failed: cudaError_t {err}")
+
+
+def parent_k1(parent_dir: str, libs: dict):
+    """The parent's K1 (its production and stripped entries) as a function
+    of (params, static, spp, strip) giving the (3, H, W) image, and its K5a
+    as one of (params, static, spp) giving the (H, W) sums; each bound from
+    the parent's source, K1 culling where this tree's wrapper does."""
+    with open(os.path.join(parent_dir, "megakernel.cu")) as f:
+        k1_src = f.read()
+    with open(os.path.join(parent_dir, "profile.cu")) as f:
+        prof_src = f.read()
+    k1_lib = ctypes.CDLL(libs["megakernel"])
+    prof_lib = ctypes.CDLL(libs["profile"])
+    max_clusters = k1_lib.sail_max_clusters()
+
+    def k1(params, static, spp, strip=None):
+        dev = params.device
+        out = torch.empty((3, SIZE, SIZE), dtype=torch.float32, device=dev)
+        values = dict(_scene_values(params, static, dev), spp=spp,
+                      out_x=out[0].data_ptr(), out_y=out[1].data_ptr(),
+                      out_z=out[2].data_ptr())
+        if strip is None:
+            values["n_clusters"] = mk.cull_clusters(static, None,
+                                                    max_clusters)
+            _bound(k1_lib, k1_src, "sail_render_block", values)
+        else:
+            values.update(n_clusters=0, strip=pf.STRIPS[strip])
+            _bound(prof_lib, prof_src, "sail_render_block_stripped", values)
+        return out
+
+    def k5a(params, static, spp):
+        dev = params.device
+        out = torch.empty((SIZE, SIZE), dtype=torch.float32, device=dev)
+        _bound(prof_lib, prof_src, "sail_isect_only",
+               dict(_scene_values(params, static, dev), spp=spp,
+                    out=out.data_ptr()))
+        return out
+    return k1, k5a
+
+
+def _k1_new(params, static, spp, strip=None):
+    """This tree's K1 (or a stripped build) through its wrapper, as a
+    (3, H, W) image."""
+    if strip is None:
+        img = mk.render_block(params, static, SIZE, SIZE, spp, 0, 0, BOUNCES)
+    else:
+        img = pf.render_block_stripped(strip, params, static, SIZE, SIZE,
+                                       spp, 0, 0, BOUNCES)
+    return torch.stack(tuple(img))
 
 
 def parent_k2(parent_dir: str, lib_path: str):
@@ -240,35 +363,64 @@ def scene_of(name: str):
     return getattr(scenes, name)()
 
 
-def run(parent_dir: str, out_dir: str = None) -> dict:
+def _row(label: str, r: dict) -> dict:
+    print(label, json.dumps(r), flush=True)
+    return r
+
+
+def run(parent_dir: str, with_k2: bool = True) -> dict:
     dev = torch.device("cuda", 0)
     root = os.path.dirname(build.BUILD_DIR)
-    parent_libs = build_parent(parent_dir,
-                               out_dir or os.path.join(root, "parent"))
-    libs = dict(zip(SOURCES, build.build(*SOURCES, "profile_grad")))
+    names = SOURCES if with_k2 else tuple(n for n in SOURCES
+                                          if n not in K2_SOURCES)
+    parent_libs = build_parent(parent_dir, os.path.join(root, "parent"),
+                               names)
+    libs = dict(zip(names, build.build(*names)))
     out = {"device": card(), "shape": f"{SIZE}x{SIZE} b{BOUNCES}",
-           "sass": compare_sass(parent_libs, libs),
-           "resources": {k: v for k, v in build.resource_usage(
-               "megakernel_grad").items() if k.startswith("render_grad")},
-           "resources_profile": build.resource_usage("profile_grad")}
-    old_k2, old_limits = parent_k2(parent_dir,
-                                   parent_libs["megakernel_grad"])
-    out["steps"] = {}
-    for name, spp in CASES:
+           "rounds": ROUNDS, "sass": compare_sass(parent_libs, libs)}
+    old_k1, old_k5a = parent_k1(parent_dir, parent_libs)
+    out["k1"] = {}
+    for label, name, spp, strip in K1_CASES:
         params, static = scene_of(name).pack()
         params = params.to(dev)
-        g = Vec3(*(torch.full((SIZE, SIZE), 1.0 / (SIZE * SIZE * spp),
-                              device=dev),) * 3)
-        r = in_turns(lambda: old_k2(params, static, g, spp),
-                     lambda: mk.render_grad_block(params, static, g, SIZE,
-                                                  SIZE, spp, 0, 0, BOUNCES))
-        r["spp"] = spp
-        r["parent_build"] = parent_cap(old_limits, params.numel())
-        r["build"] = mk.grad_build(params.numel())
-        r["min_blocks"] = mk.grad_launch_bound(params.numel(), static)
-        r["n_params"] = params.numel()
-        out["steps"][f"{name} spp{spp}"] = r
-        print(name, json.dumps(r), flush=True)
+        r = in_turns(lambda: old_k1(params, static, spp, strip),
+                     lambda: _k1_new(params, static, spp, strip))
+        out["k1"][label] = _row(label, dict(r, scene=name, spp=spp))
+    params, static = scene_of(K5A_SCENE).pack()
+    params = params.to(dev)
+    r = in_turns(lambda: old_k5a(params, static, SPP),
+                 lambda: pf.isect_only_block(params, static, SIZE, SIZE, SPP,
+                                             BOUNCES))
+    out["k1"]["k5a"] = _row("k5a", dict(r, scene=K5A_SCENE, spp=SPP))
+    if with_k2:
+        out["resources"] = {k: v for k, v in build.resource_usage(
+            "megakernel_grad").items() if k.startswith("render_grad")}
+        out["resources_profile"] = build.resource_usage("profile_grad")
+        old_k2, old_limits = parent_k2(parent_dir,
+                                       parent_libs["megakernel_grad"])
+        out["steps"] = {}
+        for name, spp in CASES:
+            params, static = scene_of(name).pack()
+            params = params.to(dev)
+            g = Vec3(*(torch.full((SIZE, SIZE), 1.0 / (SIZE * SIZE * spp),
+                                  device=dev),) * 3)
+            r = in_turns(lambda: old_k2(params, static, g, spp),
+                         lambda: mk.render_grad_block(params, static, g, SIZE,
+                                                      SIZE, spp, 0, 0,
+                                                      BOUNCES))
+            r["spp"] = spp
+            r["parent_build"] = parent_cap(old_limits, params.numel())
+            r["build"] = mk.grad_build(params.numel())
+            r["min_blocks"] = mk.grad_launch_bound(params.numel(), static)
+            r["n_params"] = params.numel()
+            out["steps"][f"{name} spp{spp}"] = _row(name, r)
+    rows = {**out["k1"], **out.get("steps", {})}
+    out["summary"] = {
+        "not_bit_identical": [k for k, r in rows.items()
+                              if not r["bit_identical"]],
+        "slower_than_parent": [k for k, r in rows.items() if r["b_median_ms"]
+                               > SLOWER * r["a_median_ms"]],
+        "sass_differs": out["sass"]["differ"]}
     return out
 
 
@@ -276,9 +428,11 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
                     help="a directory holding the parent's csrc/ files")
-    ap.add_argument("--out", default="K2_COMPARE.json")
+    ap.add_argument("--out", default="COMPARE.json")
+    ap.add_argument("--no-k2", action="store_true",
+                    help="K1 and K5a only: no K2 build, SASS or rows")
     args = ap.parse_args(argv)
-    out = run(args.parent)
+    out = run(args.parent, with_k2=not args.no_k2)
     text = json.dumps(out, indent=1)
     print(text)
     with open(args.out, "w") as f:

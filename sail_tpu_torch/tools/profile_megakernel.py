@@ -30,7 +30,7 @@ leaves what it measured):
   pipe and the SFU at the card's maximum SM clock).
 - `open_scene`: K1 on `material_demo_open` at 512² x 32 x 5 with
   `early_exit` off and on.  On the card the two are one kernel (each thread
-  leaves its bounce loop when its path misses or dies), so the images are
+  starts its next sample when its path misses or dies), so the images are
   equal bit for bit and the times about the same.
 
 Not ported, as they measure TPU knobs or XLA alone: `cost_recon` (XLA's cost
@@ -197,7 +197,7 @@ def open_scene_section(device, size: int = OPEN[0], spp: int = OPEN[1],
     args = (params.to(device), static, size, size, spp, 0, 0, bounces)
     out = {"config": f"material_demo_open {size}^2 x {spp}spp x {bounces}b",
            "note": "on the card early_exit changes nothing in K1: each thread"
-                   " leaves its bounce loop when its path misses or dies"}
+                   " starts its next sample when its path misses or dies"}
     imgs = {}
     for early in (False, True):
         key = "early" if early else "base"

@@ -254,3 +254,54 @@ def test_k2_compare_binds_a_parent_by_its_signature():
         [352, 1024, 4096]
     assert [kc.parent_cap(new_limits, n) for n in (72, 220, 221, 879)] == \
         [0, 0, 352, 1024]
+
+
+# K1's entry before the staged rectangle frames (no n_frames), as the
+# parent's source gives it to tools/k2_compare.py.
+_PARENT_K1_DECL = '''
+extern "C" int sail_render_block(const float* params, const int* table, int n_obj, int n_plain,
+                                 int n_groups, int n_mat, int n_tex, int n_light, int cam,
+                                 int all_shapes, int materials, int n_clusters, float* out_x,
+                                 float* out_y,
+                                 float* out_z, int height, int width, int spp, int seed, int sample0,
+                                 int max_bounces, int row0, int image_height, void* stream) {
+'''
+
+
+def test_k1_compare_binds_a_parent_by_its_signature():
+    """tools/k2_compare.py binds a parent's K1, its stripped builds and K5a
+    from the parameters their sources declare, by name: this tree's entries
+    and the K1 entry without `n_frames` each get their own argument list; a
+    parameter the tool does not know stops it."""
+    import ctypes
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.ops.cuda import profile as pf
+    from sail_tpu_torch.tools import k2_compare as kc
+    names = ("params", "table", "n_obj", "n_plain", "n_groups", "n_mat",
+             "n_tex", "n_light", "cam", "all_shapes", "materials",
+             "n_clusters", "n_frames", "out_x", "out_y", "out_z", "height",
+             "width", "spp", "seed", "sample0", "max_bounces", "row0",
+             "image_height", "stream")
+    values = {n: i for i, n in enumerate(names + ("strip", "out"))}
+    with open(os.path.join(build.CSRC_DIR, "megakernel.cu")) as f:
+        here = kc.entry_params(f.read(), "sail_render_block")
+    argtypes, args = kc.parent_args(here, values)
+    assert argtypes == mk.K1_ARGTYPES
+    assert args == [values[n] for n in names]
+    old = kc.entry_params(_PARENT_K1_DECL, "sail_render_block")
+    argtypes, args = kc.parent_args(old, values)
+    assert [n for _, n in old] == [n for n in names if n != "n_frames"]
+    assert argtypes == [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 \
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    assert args[12] == values["out_x"]
+    with open(os.path.join(build.CSRC_DIR, "profile.cu")) as f:
+        prof = f.read()
+    for entry, want in (("sail_render_block_stripped", pf.STRIPPED_ARGTYPES),
+                        ("sail_isect_only", pf.ISECT_ARGTYPES)):
+        assert kc.parent_args(kc.entry_params(prof, entry), values)[0] \
+            == want, entry
+    with pytest.raises(ValueError, match="n_rects"):
+        kc.parent_args(old[:12] + [(False, "n_rects")] + old[12:], values)
+    with pytest.raises(ValueError, match="out_x"):
+        kc.parent_args([(False, n) if n == "out_x" else (p, n)
+                        for p, n in old], values)
