@@ -7,7 +7,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      builds K1 (csrc/megakernel.cu, eight scene kinds), K2
      (csrc/megakernel_grad.cu: the gradient in shared memory for two scene
      kinds, the kind without materials also at two blocks per SM, and in
-     local arrays of three sizes for two kinds), the profiling kernels
+     local arrays of three sizes for two kinds; the lights beyond a
+     rectangle area light in the shared and the 352-float builds, for two
+     kinds), the profiling kernels
      (csrc/profile.cu: K5a, K5b, K5c, K1 with each of four phases
      stripped) and K2's stripped builds (csrc/profile_grad.cu), one nvcc
      each, started together, and reports each kernel's registers, stack,
@@ -27,7 +29,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
   4. the gradient path (bench.py's fwd+bwd step): K2 against its plain
      version (torch autograd) at 64² on three scenes and a row tile, and at
      1024² x 4 spp, in relative L-inf and per leaf; K2 bit-identical on
-     repeat; its reduce pass against a plain sum; then
+     repeat; its reduce pass bit for bit against its plain version (the
+     same sums in the same order) and against a float64 sum, on config
+     2's rows (4,096 x 72) and the 256-sphere scene's (4,096 x 3,375),
+     timed per launch queued behind a sleeping kernel beside the plain
+     version and sum(0); then
      render_image_fast(params, seed, static, 1024, 1024, 64, 5) ->
      mean(x + y + z) -> backward(), through exactly one K1, one K2 and one
      reduce launch, timed; K2 at that shape bit for bit against the step's
@@ -98,6 +104,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      stripped builds on config 2 at 1024² x {4, 16, 64} spp x 5 bounces
      (ms and ms per sample), printed as one JSON line with K2's resources
      (-Xptxas -v).
+ 10. lights (BASELINE config 4, lights_and_quadrics: an area, a point and a
+     spot light over a cone, a metal cylinder, a disk and a paraboloid; and
+     the check scene area_lights: an area light over each of seven other
+     shapes): K1 against its plain version bit for bit at 64² x 4 spp x 3
+     bounces and on a full-width row tile at 1024² x 64 x 5, golden
+     config4; K2 against its plain version on a full-width row tile of each
+     at the step's 64 spp (relative L-inf and per leaf with the pixel
+     term), bit-identical on repeat; then Renderer(1024, 1024, seed=0,
+     max_bounces=5) -> update(lights_and_quadrics) -> render_spp(256) ->
+     output through exactly one K1 launch, timed, its K1 bit for bit
+     against the plain version on a row tile at 256 spp; then
+     render_image_fast(lights_and_quadrics, 1024², 64 spp, 5 bounces) ->
+     mean(x+y+z) -> backward() through one K1, one K2 and one reduce
+     launch, timed, its gradient K2's bit for bit.
 Every kernel's bound is computed from this run's inputs: the FP32
 operations the plain version's masks say these paths need
 (sail_tpu_torch/utils/opcount.py) over 67 TFLOP/s, or the bytes over
@@ -152,6 +172,8 @@ K2_TILE = {MANY: (4, 510), MOST: (16, 504), "material_demo": (8, 508),
 # open scene's alive fractions at the main path's size
 CHECK = (64, 4, 3)
 ALIVE_SAMPLES = 4
+# phase 10: config 4's forward at BASELINE's samples per pixel
+LIGHTS_SPP = 256
 # phase 8: K5a's check shape (size, spp, bounces), the stripped builds',
 # K5b/K5c's tolerance for the rsqrt mixes (rsqrtf against torch.rsqrt,
 # relative, elementwise), and the tools' shapes (size, spp, bounces)
@@ -215,6 +237,30 @@ def median_ms(fn, *args, **kw) -> float:
     cuda_ms(fn, *args, **kw)
     return statistics.median(cuda_ms(fn, *args, **kw)[1]
                              for _ in range(TIMED_RUNS))
+
+
+def reduce_check(dev, shape) -> dict:
+    """K2's reduce on seeded rows of `shape` against its plain version bit
+    for bit, and against a float64 sum; its time (one call between events,
+    as the wrapper runs it, and per launch queued), the plain version's and
+    `sum(0)`'s.  Raises."""
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.tools.k2_compare import queued_ms
+    rows = torch.randn(shape, generator=torch.Generator().manual_seed(0)
+                       ).to(dev)
+    got, call_ms = cuda_ms(mk.reduce_grad_rows, rows)
+    want = mk.reduce_grad_rows_plain(rows)
+    err = float((got.double() - rows.double().sum(0)).abs().max())
+    if not torch.equal(got, want) or err > 1e-3:
+        raise AssertionError(f"the reduce on {shape} is not its plain "
+                             f"version bit for bit, or off a float64 sum by "
+                             f"{err}")
+    return dict(shape=shape, max_abs_vs_f64=err, call_ms=call_ms,
+                ms=queued_ms(mk.reduce_grad_rows, rows, runs=TIMED_RUNS),
+                plain_ms=queued_ms(mk.reduce_grad_rows_plain, rows, n=5,
+                                   runs=TIMED_RUNS),
+                sum_ms=queued_ms(lambda r: r.sum(0), rows, runs=TIMED_RUNS),
+                bytes=4 * (rows.numel() + rows.shape[1]))
 
 
 def bound(params, static, height: int, width: int, spp: int, bounces: int,
@@ -299,15 +345,14 @@ def gradient_path(dev, card: str) -> list:
             raise AssertionError(f"K2 is not repeatable: {summary}")
         results.append(summary + ", bit-identical on repeat")
 
-    # the reduce pass against a plain sum, at the main path's row count
+    # the reduce pass bit for bit against its plain version and against a
+    # float64 sum, at the step's row count: config 2's parameters and the
+    # 256-sphere scene's (13 n + 47)
     bx, by = mk.grad_limits()["block"]
-    rows_t = torch.randn((-(-W // bx) * -(-H // by), len(got)),
-                         generator=torch.Generator().manual_seed(0)).to(dev)
-    red, red_ms = cuda_ms(mk.reduce_grad_rows, rows_t)
-    red_plain, red_plain_ms = cuda_ms(lambda r: r.sum(0), rows_t)
-    red_err = float((red.double() - rows_t.double().sum(0)).abs().max())
-    if red_err > 1e-3:
-        raise AssertionError(f"reduce pass off by {red_err}")
+    n_rows = -(-W // bx) * -(-H // by)
+    red = [reduce_check(dev, (n_rows, len(got))),
+           reduce_check(dev, (n_rows, 13 * MOST + 47))]
+    red_err = max(r["max_abs_vs_f64"] for r in red)
 
     # -- the step: bench.py's fwd+bwd through one K1 and one K2 launch ------
     params, static = scenes.cornell_mirror().pack()
@@ -417,18 +462,17 @@ def gradient_path(dev, card: str) -> list:
           f"{launches[2]} reduce launch, loss {float(loss.detach()):.6f} | fwd+bwd "
           f"{step_ms:.2f} ms = {mrays(step_ms):.1f} Mrays/s (median of "
           f"{TIMED_RUNS}) | K2 {k2_ms:.2f} ms (median of {TIMED_RUNS}) | "
-          f"plain K2 {k2_plain_ms:.1f} ms on the tile (one run) | reduce "
-          f"{red_ms:.3f} ms,"
-          f" plain sum {red_plain_ms:.3f} ms | Adam lr 5e-2 x{ADAM_STEPS}: "
+          f"plain K2 {k2_plain_ms:.1f} ms on the tile (one run) | reduce, "
+          f"bit for bit its plain version: " + "; ".join(
+              f"{r['shape'][0]} x {r['shape'][1]}: {r['ms']:.4f} ms a launch "
+              f"queued, {r['call_ms']:.4f} ms a call, plain "
+              f"{r['plain_ms']:.4f} ms, sum(0) {r['sum_ms']:.4f} ms"
+              for r in red) + f" | Adam lr 5e-2 x{ADAM_STEPS}: "
           f"loss {' '.join(f'{x:.6g}' for x in losses)}; sphere kd 0.6 -> "
           f"{float(fitted[off.materials[2]]):.4f} (true 1.0), light "
           f"emission 3.5 -> {float(fitted[off.lights[0]]):.4f} (true 5.0) | "
           f"{card}", flush=True)
-    from sail_tpu_torch.utils import opcount
     k2_bound = bound(params, static, H, W, SPP, BOUNCES, grad=True)
-    red_bound_ms, red_by = opcount.bound_ms(0.0, 4 * (rows_t.numel()
-                                                      + rows_t.shape[1]))
-    red_bound = {"bound_ms": red_bound_ms, "bound_by": red_by}
     shape = f"cornell_mirror {W}x{H} spp{SPP} b{BOUNCES}"
     return [
         kernel_row("K2 render_grad_block (backward megakernel)",
@@ -438,12 +482,28 @@ def gradient_path(dev, card: str) -> list:
                    grad_abs, k2_ms, k2_plain_ms, k2_bound, shape,
                    rel_linf=grad_err, plain_shape=tile, tile_ms=tile_ms,
                    localised=where, build=k2_build(params.numel(), static)),
-        kernel_row("K2 reduce_grad_rows (K2's cross-block sum)",
-                   "sail_tpu_torch/csrc/megakernel_grad.cu",
-                   "sail_tpu/ops/pallas/megakernel.py:459", launches[2],
-                   red_err, red_ms, red_plain_ms, red_bound,
-                   f"{rows_t.shape[0]} rows x {rows_t.shape[1]} params",
-                   library_ms=red_plain_ms)]
+        kernel_row(
+            "K2 reduce_grad_rows (K2's cross-block sum)",
+            "sail_tpu_torch/csrc/megakernel_grad.cu",
+            "sail_tpu/ops/pallas/megakernel.py:459", launches[2],
+            red[0]["max_abs_vs_f64"], red[0]["ms"], red[0]["plain_ms"],
+            reduce_bound(red[0]), f"{n_rows} rows x {len(got)} params "
+            f"(config 2's step)", library_ms=red[0]["sum_ms"],
+            call_ms=red[0]["call_ms"],
+            timing="ms, plain_ms, library_ms: per launch, queued behind a "
+            "sleeping kernel; call_ms: one call between events",
+            at_many_spheres=dict(
+                {k: red[1][k] for k in ("shape", "ms", "plain_ms", "sum_ms",
+                                        "call_ms")},
+                **reduce_bound(red[1]), spheres=MOST))]
+
+
+def reduce_bound(r: dict) -> dict:
+    """The reduce's bound: its bytes (the rows read once, the sum written
+    once) over the memory rate."""
+    from sail_tpu_torch.utils import opcount
+    return dict(zip(("bound_ms", "bound_by"),
+                    opcount.bound_ms(0.0, r["bytes"])))
 
 
 def scene_of(name: str):
@@ -455,9 +515,10 @@ def scene_of(name: str):
     return getattr(scenes, name)()
 
 
-def renderer_path(dev, name: str, label: str, early_exit: bool = False):
+def renderer_path(dev, name: str, label: str, early_exit: bool = False,
+                  spp: int = SPP):
     """Renderer(W, H, seed=0, max_bounces=BOUNCES, early_exit=) ->
-    update(scene `name`) -> render_spp(SPP) -> output, through exactly one
+    update(scene `name`) -> render_spp(spp) -> output, through exactly one
     K1 launch (counted from 0 just before), then timed.  Returns (launches,
     output, render_spp ms, params, static, renderer)."""
     from sail_tpu_torch import Renderer
@@ -468,7 +529,7 @@ def renderer_path(dev, name: str, label: str, early_exit: bool = False):
                  early_exit=early_exit)
     r.update(scene)
     mk.render_block.launches = 0
-    r.render_spp(scene, SPP)
+    r.render_spp(scene, spp)
     out = r.output(scene)
     launches = mk.render_block.launches
     if launches != 1 or out.shape != (H, W, 3) or not np.isfinite(out).all():
@@ -478,7 +539,7 @@ def renderer_path(dev, name: str, label: str, early_exit: bool = False):
     for _ in range(TIMED_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r.render_spp(scene, SPP)
+        r.render_spp(scene, spp)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     params, static = scene.pack()
@@ -1297,6 +1358,179 @@ def k2_phases(dev, card: str) -> list:
     return rows
 
 
+def lights_path(dev, card: str) -> list:
+    """Phase 10: the lights (BASELINE config 4, `lights_and_quadrics`: an
+    area, a point and a spot light; the check scene `area_lights`: an area
+    light over each of seven other shapes).  K1 against its plain version
+    bit for bit at CHECK and on a full-width row tile at SPP, golden
+    config4; K2 against its plain version on a row tile of each at the
+    step's spp; then config 4's forward (Renderer, 1024² x LIGHTS_SPP x 5)
+    through one K1 launch and its fwd+bwd step (1024² x 64 x 5) through one
+    K1, one K2 and one reduce launch, timed.  Returns the kernels' JSON
+    entries."""
+    from sail_tpu_torch.core.vecmath import Vec3
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.tools import grad_localise
+    from sail_tpu_torch.tools.goldens import golden_check
+
+    size, spp, bounces = CHECK
+    results = []
+    for name in ("lights_and_quadrics", "area_lights"):
+        params, static = scene_of(name).pack()
+        args = (params.to(dev), static, size, size, spp, 0, 0, bounces)
+        got = mk.render_block(*args)
+        want = mk.render_block_plain(*args)
+        err, _ = compare(got, want)
+        results.append(f"{name} {size}x{size} spp{spp} b{bounces}: max_abs "
+                       f"{err:.3g}, mean {float(want.stack().mean()):.4f}")
+        if not (torch.equal(got.stack(), want.stack())
+                and float(want.stack().max()) > 0):
+            raise AssertionError(f"K1 is not its plain version bit for bit "
+                                 f"or renders black: {results[-1]}")
+        text, err, _, _, _ = k1_tile(name, params.to(dev), static, SPP)
+        if err != 0:
+            raise AssertionError(f"K1 is not its plain version bit for bit "
+                                 f"on {text}")
+        results.append(text)
+    ref = np.load(os.path.join(GOLDENS, "config4_lights_quadrics.npy"))
+    params, static = scene_of("lights_and_quadrics").pack()
+    img = mk.render_block(params.to(dev), static, size, size, spp, 0, 0,
+                          bounces)
+    gold = golden_check((img.stack() * (1.0 / spp)).cpu().numpy(), ref,
+                        params, static, spp)
+    results.append(f"golden config4_lights_quadrics max_abs "
+                   f"{gold['max_abs']:.3g}, pixels over {TOL:g}: "
+                   f"{gold['outside']}, elsewhere max_abs "
+                   f"{gold['max_abs_elsewhere']:.3g}")
+    if gold["unexplained"]:
+        raise AssertionError(f"K1 disagrees with golden config4: {gold}")
+
+    # K2 on a full-width row tile of each scene at the step's spp and
+    # cotangent: relative L-inf, per leaf with the pixel term, repeatable
+    grads = {}
+    for name in ("lights_and_quadrics", "area_lights"):
+        params, static = scene_of(name).pack()
+        params = params.to(dev)
+        t_rows, row0 = K2_TILE["material_demo"]
+        gt = Vec3(*(torch.full((t_rows, W), 1.0 / (H * W * SPP),
+                               device=dev),) * 3)
+        args = (params, static, gt, t_rows, W, SPP, 0, 0, BOUNCES)
+        kw = dict(row0=row0, image_height=H)
+        got = mk.render_grad_block(*args, **kw)
+        again = mk.render_grad_block(*args, **kw)
+        tile_ms = median_ms(mk.render_grad_block, *args, **kw)
+        want, plain_ms = cuda_ms(mk.render_grad_block_plain, *args, **kw)
+        shape = (f"{name} rows {row0}-{row0 + t_rows - 1} of {H} x {W} "
+                 f"spp{SPP} b{BOUNCES}")
+        summary, err, abs_err, _ = grad_check(
+            f"{shape} ({params.numel()} params, K2 build "
+            f"{k2_build(params.numel(), static)})", got, want, static,
+            per_leaf=False)
+        where = grad_localise.check(*args, row0, H, got, want)
+        if where["excess"] > 1 or not torch.equal(got, again):
+            raise AssertionError(f"K2 disagrees with its plain version on a "
+                                 f"leaf or is not repeatable: {summary}, "
+                                 f"{where}")
+        grads[name] = dict(shape=shape, err=err, abs_err=abs_err,
+                           tile_ms=tile_ms, plain_ms=plain_ms, where=where)
+        results.append(f"{summary}; per leaf with the pixel term: worst "
+                       f"{where['leaf_name']} = {where['excess']:.3g} of its "
+                       f"bound; bit-identical on repeat; K2 {tile_ms:.2f} "
+                       f"ms, plain {plain_ms:.1f} ms on the tile")
+
+    # -- config 4's forward path: the Renderer at LIGHTS_SPP -----------------
+    name = "lights_and_quadrics"
+    label = f"Renderer {name} {W}x{H} spp{LIGHTS_SPP} b{BOUNCES}"
+    launches, out, fwd_ms, params, static, _ = renderer_path(
+        dev, name, label, spp=LIGHTS_SPP)
+    full = (params, static, H, W, LIGHTS_SPP, 0, 0, BOUNCES)
+    k1_ms = median_ms(mk.render_block, *full)
+    text, k1_err, k1_tile_ms, k1_plain_ms, k1_shape = k1_tile(
+        name, params, static, LIGHTS_SPP)
+    if k1_err != 0:
+        raise AssertionError(f"K1 is not its plain version bit for bit on "
+                             f"{text}")
+    k1_bound = bound(params, static, H, W, LIGHTS_SPP, BOUNCES, samples=1,
+                     row_step=32)
+
+    # -- config 4's fwd+bwd step ---------------------------------------------
+    p = params.clone().requires_grad_()
+
+    def step(p, seed):
+        img = mk.render_image_fast(p, seed, static, H, W, SPP, BOUNCES)
+        loss = (img.x + img.y + img.z).mean()
+        loss.backward()
+        return loss
+
+    mk.render_block.launches = mk.render_grad_block.launches = 0
+    mk.reduce_grad_rows.launches = 0
+    loss = step(p, 0)
+    torch.cuda.synchronize()
+    step_launches = (mk.render_block.launches, mk.render_grad_block.launches,
+                     mk.reduce_grad_rows.launches)
+    if step_launches != (1, 1, 1) or not (torch.isfinite(p.grad).all()
+                                          and p.grad.abs().max() > 0
+                                          and torch.isfinite(loss)):
+        raise AssertionError(f"the step on {name} made {step_launches} "
+                             f"K1/K2/reduce launches, loss "
+                             f"{float(loss.detach())}, finite grad "
+                             f"{bool(torch.isfinite(p.grad).all())}")
+    step_grad = p.grad.clone()
+    times = []
+    for k in range(TIMED_RUNS):
+        p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(p, k + 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    g = Vec3(*(torch.full((H, W), 1.0 / (H * W * SPP), device=dev),) * 3)
+    runs = [cuda_ms(mk.render_grad_block, params, static, g, H, W, SPP, 0,
+                    0, BOUNCES) for _ in range(TIMED_RUNS)]
+    k2_ms = statistics.median(ms for _, ms in runs)
+    if not all(torch.equal(step_grad, r) for r, _ in runs):
+        raise AssertionError(f"the step's gradient on {name} is not K2's at "
+                             f"the same arguments")
+    k2_bound = bound(params, static, H, W, SPP, BOUNCES, grad=True,
+                     samples=1, row_step=32)
+    c4 = grads[name]
+    print(f"phase 10 lights: K1 vs plain: " + "; ".join(results[:5])
+          + " | K2 vs plain: " + "; ".join(results[5:]) + f" | {label}: "
+          f"{launches} K1 launch, output {out.shape} finite, mean "
+          f"{out.mean():.4f}, render_spp {fwd_ms:.2f} ms = "
+          f"{mrays(fwd_ms, LIGHTS_SPP):.1f} Mrays/s (median of {TIMED_RUNS}),"
+          f" K1 {k1_ms:.2f} ms, bound {k1_bound['bound_ms']:.3f} ms "
+          f"({k1_bound['bound_by']}) | K1 vs plain on {text} | step "
+          f"render_image_fast {name} {W}x{H} spp{SPP} b{BOUNCES} -> "
+          f"mean(x+y+z) -> backward: {step_launches[0]} K1, "
+          f"{step_launches[1]} K2, {step_launches[2]} reduce launch, loss "
+          f"{float(loss.detach()):.6g}, fwd+bwd {step_ms:.1f} ms = "
+          f"{mrays(step_ms):.1f} Mrays/s (median of {TIMED_RUNS}), K2 "
+          f"{k2_ms:.1f} ms, bound {k2_bound['bound_ms']:.3f} ms "
+          f"({k2_bound['bound_by']}), the step's gradient K2's bit for bit "
+          f"| {card}", flush=True)
+    return [
+        kernel_row(f"K1 render_block ({name}: area, point and spot lights, "
+                   f"quadrics, metal)",
+                   "sail_tpu_torch/csrc/megakernel.cu + path.cuh + bsdf.cuh",
+                   "sail_tpu/ops/pallas/megakernel.py:159", launches,
+                   k1_err, k1_ms, k1_plain_ms, k1_bound,
+                   f"{name} {W}x{H} spp{LIGHTS_SPP} b{BOUNCES}",
+                   launches_counted_on=label, plain_shape=k1_shape,
+                   tile_ms=k1_tile_ms),
+        kernel_row(f"K2 render_grad_block ({name}: the LIGHTS build)",
+                   "sail_tpu_torch/csrc/megakernel_grad.cu + render_grad.cuh "
+                   "+ adjoint.cuh + bsdf.cuh",
+                   "sail_tpu/ops/pallas/megakernel.py:262", step_launches[1],
+                   c4["abs_err"], k2_ms, c4["plain_ms"], k2_bound,
+                   f"{name} {W}x{H} spp{SPP} b{BOUNCES}", rel_linf=c4["err"],
+                   launches_counted_on=f"the fwd+bwd step on {name}",
+                   plain_shape=c4["shape"], tile_ms=c4["tile_ms"],
+                   localised=c4["where"],
+                   build=k2_build(params.numel(), static))]
+
+
 def kernel_vs_plain(dev, card: str) -> list:
     """Phase 2: K1 against its plain version on the card, and the goldens.
     Returns no kernel entry (phase 3 gives K1's)."""
@@ -1438,13 +1672,18 @@ def main() -> int:
     flags = ("false", "true")
     for kernel in (*(f"render_block_kernel<{a}, {c}, {m}, 0> (megakernel)"
                      for a in flags for c in flags for m in flags),
-                   "reduce_grad_rows_kernel (megakernel_grad)",
-                   *(f"render_grad_kernel<{mk.SHARED_GRAD}, {a}, {m}, 0, {b}>"
-                     f" (megakernel_grad)" for a, m, b in (
+                   *(f"reduce_grad_rows_kernel<{ppt}> (megakernel_grad)"
+                     for ppt in (1, 2, 4)),
+                   *(f"render_grad_kernel<{mk.SHARED_GRAD}, {a}, {m}, 0, {b}, "
+                     f"false> (megakernel_grad)" for a, m, b in (
                          ("false", "false", 2), ("true", "false", 1),
                          ("true", "true", 1))),
-                   *(f"render_grad_kernel<{cap}, true, {m}, 0, 1> "
+                   *(f"render_grad_kernel<{cap}, true, {m}, 0, 1, false> "
                      f"(megakernel_grad)" for cap in mk.GRAD_CAPS
+                     for m in flags),
+                   *(f"render_grad_kernel<{cap}, true, {m}, 0, 1, true> "
+                     f"(megakernel_grad)"
+                     for cap in (mk.SHARED_GRAD, mk.LIGHTS_MAX_CAP)
                      for m in flags),
                    *(f"isect_only_kernel<{a}> (profile)" for a in flags),
                    "alu_peak_kernel<0> (profile)",
@@ -1453,7 +1692,7 @@ def main() -> int:
                    *(f"render_block_kernel<false, false, false, {b}> "
                      f"(profile)" for b in (1, 2, 4, 8)),
                    *(f"render_grad_kernel<{mk.SHARED_GRAD}, false, false, "
-                     f"{st}, 2> (profile_grad)" for st in (1, 3))):
+                     f"{st}, 2, false> (profile_grad)" for st in (1, 3))):
         if kernel not in usage:
             raise AssertionError(f"no -Xptxas -v report for {kernel}")
     print(card)
@@ -1472,7 +1711,8 @@ def main() -> int:
     for phase, fn in ((2, kernel_vs_plain), (3, main_path),
                       (4, gradient_path), (5, many_objects),
                       (6, many_gradients), (7, materials_path),
-                      (8, profiling_path), (9, k2_phases)):
+                      (8, profiling_path), (9, k2_phases),
+                      (10, lights_path)):
         t1 = time.perf_counter()
         kernels += fn(dev, card)
         seconds[phase] = time.perf_counter() - t1

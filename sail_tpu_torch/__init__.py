@@ -5,7 +5,8 @@ reference.  This package imports torch and never jax.  It covers the forward
 serving path — `Renderer.update` → `render_spp` → `output` — and the
 gradient path (`ops.cuda.megakernel.render_image_fast`) for scenes of every
 shape category, in any number, with every material (matte, mirror, metal,
-glass) and texture category and rectangle area lights; on a CUDA device
+glass) and texture category and every light (area lights over any shape but
+a Cornell box, point and spot lights); on a CUDA device
 `render_spp` is one launch of the hand-written K1 megakernel
 (`csrc/megakernel.cu`).
 """
@@ -16,7 +17,7 @@ from .core.vecmath import Vec3
 from .scene.geometry import (Cone, Cornellbox, Cube, Cylinder, Disk,
                              Hyperboloid, Object3D, Paraboloid, Rectangle,
                              Sphere)
-from .scene.light import AreaLight, Light
+from .scene.light import AreaLight, Light, PointLight, SpotLight
 from .scene.material import Glass, Material, Matte, Metal, Mirror
 from .scene.scene import Camera, Scene, SceneStatic
 from .scene.texture import (UV, Bilerp, Checkerboard, Checkerboard2, Color,
@@ -28,6 +29,7 @@ __all__ = [
     "Object3D", "Sphere", "Rectangle", "Cornellbox", "Cube", "Cone",
     "Cylinder", "Disk", "Hyperboloid", "Paraboloid",
     "Material", "Matte", "Mirror", "Metal", "Glass", "Light", "AreaLight",
+    "PointLight", "SpotLight",
     "Texture", "UniformColor", "Checkerboard", "Checkerboard2", "Bilerp",
     "Mix", "ScaleT", "UV", "Color", "Renderer",
 ]

@@ -830,12 +830,254 @@ __device__ void texture_adj(const Scene& s, const Bounce& v, V3 d_sc, float& d_u
   gadd3(G, off, d_sc);  // UNIFORM_COLOR
 }
 
+// ------------------------------------------------------------- lights ----
+// The adjoints of path.cuh's light samples other than AREA over a RECTANGLE
+// (LIGHTS builds).  The reverse sweep replays the bounce, so `v` holds the
+// sample's outer values (to_l, d2, wl, cosines, pdf, fall); the samplers'
+// inner values are recomputed here from lu1, lu2 and the parameters, as the
+// forward computed them, so `Bounce` holds nothing more for them.
+
+// The band of a z-revolution shape (path.cuh lateral_band): the cotangents
+// of z, rho and rho' (d_z, d_rho, d_drho) and of the band's ends onto the
+// shape's parameters.
+template <class GradT>
+__device__ void lateral_band_adj(const Scene& s, int cat, int off, float u2, const Band& b, float d_z,
+                                 float d_rho, float d_drho, float d_zmin, float d_zmax, GradT G) {
+  if (cat == CONE || cat == CYLINDER) {  // zmin = 0, zmax = h
+    float h = P(s, off + 3), r = P(s, off + 4), d_r, d_h = 0.f;
+    if (cat == CONE) {  // rho = r (1 - z / mh); drho = -r / mh + 0 z
+      float mh = fmaxf(h, F(1e-9)), t = b.z / mh;
+      float d_t = -d_rho * r;
+      d_r = d_rho * (F(1.0) - t) - d_drho / mh;
+      d_z += d_t / mh;
+      float d_mh = -d_t * t / mh + d_drho * (r / mh) / mh;
+      d_h += d_mh * max_fac(h, F(1e-9));
+    } else {  // rho = r + 0 z
+      d_r = d_rho;
+    }
+    d_zmax += d_z * u2;  // z = zmin + (zmax - zmin) u2
+    gadd(G, off + 3, d_h + d_zmax);
+    gadd(G, off + 4, d_r);
+    return;
+  }
+  if (cat == PARABOLOID) {
+    float z0 = P(s, off + 3), z1 = P(s, off + 4), r = P(s, off + 5);
+    float zmin0 = fminf(z0, z1), zmax0 = fmaxf(z0, z1), rr = r * r, mrr = fmaxf(rr, F(1e-12));
+    float k = zmax0 / mrr, mk = fmaxf(k, F(1e-12)), x = b.z / mk;
+    // drho = 1 / fmaxf(2 k rho, 1e-9)
+    float e = F(2.0) * k * b.rho;
+    float d_e = -d_drho * b.drho * b.drho * max_fac(e, F(1e-9));
+    float d_k = F(2.0) * d_e * b.rho;
+    d_rho += d_e * (F(2.0) * k);
+    // rho = sqrtf(fmaxf(x, 1e-12)), x = z / mk
+    float d_x = d_rho * (F(0.5) / b.rho) * max_fac(x, F(1e-12));
+    d_z += d_x / mk;
+    d_k += -d_x * x / mk * max_fac(k, F(1e-12));
+    d_zmin += d_z - d_z * u2;
+    d_zmax += d_z * u2;
+    // the band clamped to k's side, then k = zmax0 / mrr
+    float d_zmax0 = k < 0.f ? d_zmax * min_fac(zmax0, 0.f) : d_zmax;
+    float d_zmin0 = k > 0.f ? d_zmin * max_fac(zmin0, 0.f) : d_zmin;
+    d_zmax0 += d_k / mrr;
+    float d_r = F(2.0) * r * (-d_k * k / mrr) * max_fac(rr, F(1e-12));
+    float d_z0 = 0.f, d_z1 = 0.f;
+    max_adj(z0, z1, d_zmax0, d_z0, d_z1);
+    min_adj(z0, z1, d_zmin0, d_z0, d_z1);
+    gadd(G, off + 3, d_z0);
+    gadd(G, off + 4, d_z1);
+    gadd(G, off + 5, d_r);
+    return;
+  }
+  // HYPERBOLOID: the band between p1.z and p2.z
+  float a = P(s, off + 5), c = P(s, off + 8), ah = P(s, off + 9), ch = P(s, off + 10);
+  float ma = fmaxf(ah, F(1e-12)), cz = ch * b.z, y = (F(1.0) + cz * b.z) / ma;
+  // drho = cz / fmaxf(ah rho, 1e-9)
+  float e = ah * b.rho, me = fmaxf(e, F(1e-9));
+  float d_cz = d_drho / me;
+  float d_e = -d_drho * b.drho / me * max_fac(e, F(1e-9));
+  float d_ah = d_e * b.rho;
+  d_rho += d_e * ah;
+  // rho = sqrtf(fmaxf(y, 1e-12)), y = (1 + cz z) / ma
+  float d_y = d_rho * (F(0.5) / b.rho) * max_fac(y, F(1e-12));
+  float d_num = d_y / ma;
+  d_ah += -d_y * y / ma * max_fac(ah, F(1e-12));
+  d_cz += d_num * b.z;
+  d_z += d_num * cz + d_cz * ch;
+  float d_ch = d_cz * b.z;
+  d_zmin += d_z - d_z * u2;
+  d_zmax += d_z * u2;
+  float d_a = 0.f, d_c = 0.f;
+  max_adj(a, c, d_zmax, d_a, d_c);
+  min_adj(a, c, d_zmin, d_a, d_c);
+  gadd(G, off + 5, d_a);
+  gadd(G, off + 8, d_c);
+  gadd(G, off + 9, d_ah);
+  gadd(G, off + 10, d_ch);
+}
+
+// path.cuh area_sample: the cotangents of the sampled point d_pl, its normal
+// d_nl and the pdf d_pdf onto the shape's parameters (offset `off`).
+template <class GradT>
+__device__ void area_sample_adj(const Scene& s, int cat, int off, float u1, float u2, V3 d_pl,
+                                V3 d_nl, float d_pdf, GradT G) {
+  gadd3(G, off, d_pl);  // the position (a cube's bmin) adds to the point
+  if (cat == SPHERE) {  // p = from_object(d r) + c; n = from_object(d) reverse
+    V3 fd = from_object(uniform_sphere(u1, u2));
+    float r = P(s, off + 3);
+    float pdf = F(1.0) / (F(4.0 * PI) * (r * r));
+    gadd(G, off + 3, dot(d_pl, fd) + F(2.0) * r * (-d_pdf * pdf * pdf * F(4.0 * PI)));
+    gadd(G, off + 7, dot(d_nl, fd));
+    return;
+  }
+  if (cat == DISK) {  // p = (c.x + dx r, c.y, c.z + dy r); pdf = 1 / (pi (r^2 - ir^2))
+    float dx, dy;
+    concentric_disk(u1, u2, dx, dy);
+    float r = P(s, off + 3), ir = P(s, off + 4), area = F(PI) * (r * r - ir * ir);
+    float pdf = F(1.0) / fmaxf(area, F(1e-12));
+    float d_diff = -d_pdf * pdf * pdf * max_fac(area, F(1e-12)) * F(PI);
+    gadd(G, off + 3, d_pl.x * dx + d_pl.z * dy + F(2.0) * r * d_diff);
+    gadd(G, off + 4, -F(2.0) * ir * d_diff);
+    gadd(G, off + 8, d_nl.y);
+    return;
+  }
+  if (cat == CUBE) {  // p = bmin + ext f; f holds u1p, the face's rescaled u1
+    CubeFace c = cube_face(s, off, u1, u2);
+    V3 d_ext = d_pl * c.f;
+    float d_u1p = c.face < 2 ? d_pl.y * c.ext.y : d_pl.x * c.ext.x;
+    // u1p = clip(w, 0, 1), w = (r - flo) / fmaxf(ffa, 1e-12)
+    float m = fmaxf(c.ffa, F(1e-12));
+    float d_w = d_u1p * clamp_fac(c.w, 0.f, F(1.0));
+    float d_r = d_w / m, d_flo = -d_w / m;
+    float d_fa = -d_w * c.w / m * max_fac(c.ffa, F(1e-12));
+    // flo = the cumulative area below the face (face 0: 0 r), ffa its area
+    float d_ax = 0.f, d_ay = 0.f, d_az = 0.f;
+    if (c.face >= 1) d_ax += c.face == 1 ? d_flo : F(2.0) * d_flo;
+    if (c.face == 3 || c.face == 5) d_ay += c.face == 3 ? d_flo : F(2.0) * d_flo;
+    if (c.face == 4) d_ay += F(2.0) * d_flo;
+    if (c.face == 5) d_az += d_flo;
+    if (c.face < 2) d_ax += d_fa;
+    else if (c.face < 4) d_ay += d_fa;
+    else d_az += d_fa;
+    // r = u1 area; pdf = 1 / fmaxf(area, 1e-12); area = 2 (ax + ay + az)
+    float pdf = F(1.0) / fmaxf(c.area, F(1e-12));
+    float d_area = d_r * u1 - d_pdf * pdf * pdf * max_fac(c.area, F(1e-12));
+    d_ax += F(2.0) * d_area;
+    d_ay += F(2.0) * d_area;
+    d_az += F(2.0) * d_area;
+    d_ext.x += d_ay * c.ext.z + d_az * c.ext.y;
+    d_ext.y += d_ax * c.ext.z + d_az * c.ext.x;
+    d_ext.z += d_ax * c.ext.y + d_ay * c.ext.x;
+    gadd3(G, off, -d_ext);
+    gadd3(G, off + 3, d_ext);
+    gadd(G, off + 9, dot(d_nl, c.n));
+    return;
+  }
+  // the lateral surface
+  float phi = F(TWO_PI) * u1;
+  Band b = lateral_band(s, cat, off, u2);
+  float cp = cosf(phi), sp = sinf(phi);
+  // p = from_object((rho cp, rho sp, z)) + pos
+  V3 d_local = to_object(d_pl);
+  float d_rho = d_local.x * cp + d_local.y * sp, d_z = d_local.z;
+  // n = from_object(normalize((cp, sp, -rho'))) reverse
+  const int roff = off + emission_offset(cat) + 3;
+  V3 nraw = {cp, sp, -b.drho}, d_nraw = {0.f, 0.f, 0.f};
+  gadd(G, roff, dot(d_nl, from_object(normalize(nraw))));
+  normalize_adj(nraw, to_object(d_nl * P(s, roff)), d_nraw);
+  float d_drho = -d_nraw.z;
+  // pdf = 1 / fmaxf(2 pi (zmax - zmin) jac, 1e-12), jac = rho sqrtf(1 + rho'^2)
+  float sq = sqrtf(F(1.0) + b.drho * b.drho), jac = b.rho * sq;
+  float tw = F(TWO_PI) * (b.zmax - b.zmin), den = tw * jac;
+  float pdf = F(1.0) / fmaxf(den, F(1e-12));
+  float d_den = -d_pdf * pdf * pdf * max_fac(den, F(1e-12));
+  float d_jac = d_den * tw, d_span = d_den * jac * F(TWO_PI);
+  d_rho += d_jac * sq;
+  d_drho += d_jac * b.rho * (b.drho / sq);
+  lateral_band_adj(s, cat, off, u2, b, d_z, d_rho, d_drho, -d_span, d_span, G);
+}
+
+// The adjoint of light_sample_other from the cotangents of its radiance
+// d_rad and of the light direction in the shading frame d_wll: onto the hit
+// point d_p, the shading frame (d_n, d_ss, d_ts) and the light's and its
+// shape's parameters.
+template <class GradT>
+__device__ void light_adj(const Scene& s, const Bounce& v, V3 d_rad, V3 d_wll, V3& d_p, V3& d_n,
+                          V3& d_ss, V3& d_ts, GradT G) {
+  const float nl = (float)s.n_light;
+  const int cat = v.lcat;
+  const float d_q = dot(d_rad, P3(s, v.lem)) * nl;
+  float d_cos_s, d_d2, d_cos_l = 0.f, d_pdf = 0.f;
+  V3 d_wl = {0.f, 0.f, 0.f};
+  if (cat == AREA) {  // rad = E (cos_l cos_s / (d2 pdf_a) n_light)
+    float num = v.cos_l * v.cos_s, den = v.d2 * v.pdf_a, qv = num / den;
+    gadd3(G, v.lem, d_rad * (qv * nl));
+    float d_num = d_q / den, d_den = -d_q * qv / den;
+    d_d2 = d_den * v.pdf_a;
+    d_pdf = d_den * v.d2;
+    d_cos_l = d_num * v.cos_s;
+    d_cos_s = d_num * v.cos_l;
+  } else if (cat == POINT) {  // rad = E (cos_s / d2 n_light)
+    float qv = v.cos_s / v.d2;
+    gadd3(G, v.lem, d_rad * (qv * nl));
+    d_cos_s = d_q / v.d2;
+    d_d2 = -d_q * qv / v.d2;
+  } else {  // SPOT: rad = E (fall cos_s / d2 n_light)
+    float fc = v.fall * v.cos_s, qv = fc / v.d2;
+    gadd3(G, v.lem, d_rad * (qv * nl));
+    float d_fc = d_q / v.d2;
+    d_d2 = -d_q * qv / v.d2;
+    d_cos_s = d_fc * v.fall;
+    float ctw = P(s, v.loff + 3), cfs = P(s, v.loff + 4), cos_t = v.wl.y;
+    if (!(cos_t < ctw) && !(cos_t >= cfs)) {  // inside the band: fall = delta^4
+      float span = cfs - ctw, den = fmaxf(span, F(1e-7)), delta = (cos_t - ctw) / den;
+      float d_delta = F(4.0) * (delta * delta) * delta * (d_fc * v.cos_s);
+      float d_num = d_delta / den;
+      float d_span = -d_delta * delta / den * max_fac(span, F(1e-7));
+      d_wl.y += d_num;  // cos_t = wl.y
+      gadd(G, v.loff + 3, -d_num - d_span);
+      gadd(G, v.loff + 4, d_span);
+    }
+  }
+  // cos_s = fmaxf(wl . n, 0); cos_l = fmaxf(n_l . -wl, 0)
+  float d_ds = d_cos_s * max_fac(dot(v.wl, v.n), 0.f);
+  d_wl = d_wl + v.n * d_ds;
+  d_n = d_n + v.wl * d_ds;
+  V3 d_nl = {0.f, 0.f, 0.f};
+  if (cat == AREA) {
+    float d_dl = d_cos_l * max_fac(dot(v.n_l, -v.wl), 0.f);
+    d_nl = -v.wl * d_dl;
+    d_wl = d_wl - v.n_l * d_dl;
+  }
+  // wl = to_l * (1 / sqrtf(d2)); d2 = fmaxf(to_l . to_l, 1e-12)
+  float sq = sqrtf(v.d2), inv = F(1.0) / sq;
+  V3 d_tol = d_wl * inv;
+  d_d2 += -dot(d_wl, v.to_l) * inv * inv * (F(0.5) / sq);
+  d_tol = d_tol + v.to_l * (F(2.0) * d_d2 * max_fac(dot(v.to_l, v.to_l), F(1e-12)));
+  // wl_local = world_to_local(wsh, n, ss, ts)
+  V3 d_wsh = {0.f, 0.f, 0.f};
+  world_to_local_adj(v.wsh, v.n, v.ss, v.ts, d_wll, d_wsh, d_n, d_ss, d_ts);
+  // wsh = to_l * (1 / fmaxf(dist, 1e-12)); dist = length(to_l)
+  float md = fmaxf(v.dist, F(1e-12)), inv2 = F(1.0) / md;
+  d_tol = d_tol + d_wsh * inv2;
+  length_adj(v.to_l, -dot(d_wsh, v.to_l) * inv2 * inv2 * max_fac(v.dist, F(1e-12)), d_tol);
+  // to_l = p_l - p
+  d_p = d_p - d_tol;
+  if (cat == AREA) {
+    area_sample_adj(s, v.lgcat, v.loff, v.lu1, v.lu2, d_tol, d_nl, d_pdf, G);
+  } else {  // p_l = origin (+ uniform_sphere(lu1, lu2) radius, POINT)
+    gadd3(G, v.loff, d_tol);
+    if (cat == POINT) gadd(G, v.loff + 6, dot(d_tol, uniform_sphere(v.lu1, v.lu2)));
+  }
+}
+
 // ------------------------------------------------------------ bounce ----
 // Adjoint of `bounce` from input state `st` (whose record is `v`): takes the
 // cotangents of the output ro, rd, thr in d_ro, d_rd, d_thr and replaces them
 // with those of the input; adds the parameters' share to G.  MATS as in
-// path.cuh: without it the scene has only matte, mirror and uniform colors.
-template <bool MATS, bool ALL = true, class GradT>
+// path.cuh: without it the scene has only matte, mirror and uniform colors;
+// LIGHTS as in light_sample: with it a light other than AREA over a
+// RECTANGLE takes light_adj.
+template <bool MATS, bool ALL = true, bool LIGHTS = false, class GradT>
 __device__ void bounce_adj(const Scene& s, const PathState& st, const Bounce& v, V3 g, V3& d_ro,
                            V3& d_rd, V3& d_thr, GradT G) {
   // e' = e + thr * contrib; thr' = thr * weight
@@ -863,44 +1105,52 @@ __device__ void bounce_adj(const Scene& s, const PathState& st, const Bounce& v,
       V3 d_wll = {0.f, 0.f, 0.f};
       matte_f_adj(v.kd, v.sigma, v.sc, v.wo, v.wl_local, d_contrib * v.rad, d_kd, d_sigma, d_sc,
                   d_wo, d_wll);
-      // rad = E * (cos_l * cos_s / (d2 * pdf_a) * n_light)
-      float nl = (float)s.n_light;
-      float num = v.cos_l * v.cos_s, den = v.d2 * v.pdf_a, qv = num / den;
-      gadd3(G, v.lem, d_rad * (qv * nl));
-      float d_q = dot(d_rad, P3(s, v.lem)) * nl;
-      float d_num = d_q / den, d_den = -d_q * qv / den;
-      float d_d2 = d_den * v.pdf_a, d_pdf = d_den * v.d2;
-      // cos_l = fmaxf(n_l . -wl, 0); cos_s = fmaxf(wl . n, 0)
-      float d_dl = d_num * v.cos_s * max_fac(dot(v.n_l, -v.wl), 0.f);
-      float d_ds = d_num * v.cos_l * max_fac(dot(v.wl, v.n), 0.f);
-      V3 d_nl = -v.wl * d_dl;
-      V3 d_wl = -v.n_l * d_dl + v.n * d_ds;
-      d_n = d_n + v.wl * d_ds;
-      // wl = to_l * (1 / sqrtf(d2)); d2 = fmaxf(to_l . to_l, 1e-12)
-      float sq = sqrtf(v.d2), inv = F(1.0) / sq;
-      V3 d_tol = d_wl * inv;
-      d_d2 += -dot(d_wl, v.to_l) * inv * inv * (F(0.5) / sq);
-      d_tol = d_tol + v.to_l * (F(2.0) * d_d2 * max_fac(dot(v.to_l, v.to_l), F(1e-12)));
-      // wl_local = world_to_local(wsh, n, ss, ts)
-      V3 d_wsh = {0.f, 0.f, 0.f};
-      world_to_local_adj(v.wsh, v.n, v.ss, v.ts, d_wll, d_wsh, d_n, d_ss, d_ts);
-      // wsh = to_l * (1 / fmaxf(dist, 1e-12)); dist = length(to_l)
-      float md = fmaxf(v.dist, F(1e-12)), inv2 = F(1.0) / md;
-      d_tol = d_tol + d_wsh * inv2;
-      length_adj(v.to_l, -dot(d_wsh, v.to_l) * inv2 * inv2 * max_fac(v.dist, F(1e-12)), d_tol);
-      // to_l = p_l - p; p_l = bmin + ex * lu1 + ey * lu2
-      d_p = d_p - d_tol;
-      gadd3(G, v.loff, d_tol);
-      V3 d_ex = d_tol * v.lu1, d_ey = d_tol * v.lu2;
-      // pdf_a = 1 / fmaxf(length(ex) * length(ey), 1e-12)
-      float lx = length(v.lf.ex), ly = length(v.lf.ey), pr = lx * ly;
-      float d_pr = -d_pdf * v.pdf_a * v.pdf_a * max_fac(pr, F(1e-12));
-      length_adj(v.lf.ex, d_pr * ly, d_ex);
-      length_adj(v.lf.ey, d_pr * lx, d_ey);
-      // n_l = frame n * reverse
-      gadd(G, v.loff + 9, dot(d_nl, v.lf.n));
-      V3 zero = {0.f, 0.f, 0.f};
-      rect_frame_adj(v.loff, v.lf, d_ex, d_ey, d_nl * P(s, v.loff + 9), zero, zero, G);
+      do {  // a LIGHTS build hands any light but AREA over a RECTANGLE to light_adj
+        if constexpr (LIGHTS) {
+          if (v.lcat != AREA || v.lgcat != RECTANGLE) {
+            light_adj(s, v, d_rad, d_wll, d_p, d_n, d_ss, d_ts, G);
+            break;
+          }
+        }
+        // rad = E * (cos_l * cos_s / (d2 * pdf_a) * n_light)
+        float nl = (float)s.n_light;
+        float num = v.cos_l * v.cos_s, den = v.d2 * v.pdf_a, qv = num / den;
+        gadd3(G, v.lem, d_rad * (qv * nl));
+        float d_q = dot(d_rad, P3(s, v.lem)) * nl;
+        float d_num = d_q / den, d_den = -d_q * qv / den;
+        float d_d2 = d_den * v.pdf_a, d_pdf = d_den * v.d2;
+        // cos_l = fmaxf(n_l . -wl, 0); cos_s = fmaxf(wl . n, 0)
+        float d_dl = d_num * v.cos_s * max_fac(dot(v.n_l, -v.wl), 0.f);
+        float d_ds = d_num * v.cos_l * max_fac(dot(v.wl, v.n), 0.f);
+        V3 d_nl = -v.wl * d_dl;
+        V3 d_wl = -v.n_l * d_dl + v.n * d_ds;
+        d_n = d_n + v.wl * d_ds;
+        // wl = to_l * (1 / sqrtf(d2)); d2 = fmaxf(to_l . to_l, 1e-12)
+        float sq = sqrtf(v.d2), inv = F(1.0) / sq;
+        V3 d_tol = d_wl * inv;
+        d_d2 += -dot(d_wl, v.to_l) * inv * inv * (F(0.5) / sq);
+        d_tol = d_tol + v.to_l * (F(2.0) * d_d2 * max_fac(dot(v.to_l, v.to_l), F(1e-12)));
+        // wl_local = world_to_local(wsh, n, ss, ts)
+        V3 d_wsh = {0.f, 0.f, 0.f};
+        world_to_local_adj(v.wsh, v.n, v.ss, v.ts, d_wll, d_wsh, d_n, d_ss, d_ts);
+        // wsh = to_l * (1 / fmaxf(dist, 1e-12)); dist = length(to_l)
+        float md = fmaxf(v.dist, F(1e-12)), inv2 = F(1.0) / md;
+        d_tol = d_tol + d_wsh * inv2;
+        length_adj(v.to_l, -dot(d_wsh, v.to_l) * inv2 * inv2 * max_fac(v.dist, F(1e-12)), d_tol);
+        // to_l = p_l - p; p_l = bmin + ex * lu1 + ey * lu2
+        d_p = d_p - d_tol;
+        gadd3(G, v.loff, d_tol);
+        V3 d_ex = d_tol * v.lu1, d_ey = d_tol * v.lu2;
+        // pdf_a = 1 / fmaxf(length(ex) * length(ey), 1e-12)
+        float lx = length(v.lf.ex), ly = length(v.lf.ey), pr = lx * ly;
+        float d_pr = -d_pdf * v.pdf_a * v.pdf_a * max_fac(pr, F(1e-12));
+        length_adj(v.lf.ex, d_pr * ly, d_ex);
+        length_adj(v.lf.ey, d_pr * lx, d_ey);
+        // n_l = frame n * reverse
+        gadd(G, v.loff + 9, dot(d_nl, v.lf.n));
+        V3 zero = {0.f, 0.f, 0.f};
+        rect_frame_adj(v.loff, v.lf, d_ex, d_ey, d_nl * P(s, v.loff + 9), zero, zero, G);
+      } while (false);
     }
     gadd(G, v.moff, d_kd);
     gadd(G, v.moff + 1, d_sigma);
@@ -1031,7 +1281,7 @@ __device__ __forceinline__ void camera_adj(const Scene& s, const Camera& c, V3 d
 // drift apart over a pixel's samples, they ran K2 at a third of this speed
 // on configs 2 and 3 (an H100).  A thread's own values and the order of its
 // adds do not depend on the barriers.
-template <bool MATS, int STRIP = 0, bool ALL = true, class GradT>
+template <bool MATS, int STRIP = 0, bool ALL = true, bool LIGHTS = false, class GradT>
 __device__ void sample_grad(const Scene& s, const Camera& c, V3 g, uint32_t seed, uint32_t sample,
                             int max_bounces, uint32_t row, uint32_t col, float sx_scale,
                             float sy_scale, bool inside, GradT G) {
@@ -1054,7 +1304,7 @@ __device__ void sample_grad(const Scene& s, const Camera& c, V3 g, uint32_t seed
     if (!alive) continue;
     states[b] = st;
     Bounce v;
-    if (!bounce<ALL, true, MATS>(s, st, e, seed, sample, b, row, col, v)) {
+    if (!bounce<ALL, true, MATS, 0, false, LIGHTS>(s, st, e, seed, sample, b, row, col, v)) {
       alive = false;  // a miss
       continue;
     }
@@ -1072,12 +1322,12 @@ __device__ void sample_grad(const Scene& s, const Camera& c, V3 g, uint32_t seed
     Bounce v;
     v.obj = decided[b].obj;
     v.occ = decided[b].occ;
-    bounce<ALL, true, MATS, 0, true>(s, again, e, seed, sample, b, row, col, v);
+    bounce<ALL, true, MATS, 0, true, LIGHTS>(s, again, e, seed, sample, b, row, col, v);
     if constexpr ((STRIP & GRAD_NO_ADJOINT) != 0) {
       gadd(G, 1, same_state(again, b + 1 < nb ? states[b + 1] : st) ? 0.f : F(1.0));
       gadd(G, 2, dot(g, states[b].thr * v.contrib));
     } else {
-      bounce_adj<MATS, ALL>(s, states[b], v, g, d_ro, d_rd, d_thr, G);
+      bounce_adj<MATS, ALL, LIGHTS>(s, states[b], v, g, d_ro, d_rd, d_thr, G);
     }
   }
   if constexpr (STRIP == 0)

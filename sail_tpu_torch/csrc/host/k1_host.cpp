@@ -37,7 +37,8 @@ V3 pixel_by_sample(const Scene& s, uint32_t row, uint32_t col, int spp, uint32_t
     V3 e = {0.f, 0.f, 0.f};
     for (int b = 0; b < max_bounces; ++b) {
       Bounce v;
-      if (!bounce<ALL, CULL, MATS, STRIP>(s, st, e, seed, sample, b, row, col, v)) break;
+      if (!bounce<ALL, CULL, MATS, STRIP, false, ALL>(s, st, e, seed, sample, b, row, col, v))
+        break;
       if (!(max_component(st.thr) > 0.f)) break;
     }
     acc = acc + e;

@@ -3,7 +3,9 @@
 // replays the recorded decisions) or from a reverse sweep that re-traces each
 // bounce (`closest` and `occluded` again, as K2 did before replay), one
 // pixel at a time in K2's thread order; and K2's choice of launch bound
-// (grad_build.h), as the kernels' C entries make it.  Build with a host compiler, this
+// (grad_build.h), as the kernels' C entries make it.  It runs K2's LIGHTS
+// code for every scene (a rectangle light there takes the same code as in
+// the other builds).  Build with a host compiler, this
 // directory first on the include path and no contraction of multiply-adds
 // (the kernels build -fmad=false):
 //   g++ -std=c++17 -O2 -ffp-contract=off -fPIC -shared -I csrc/host \
@@ -34,7 +36,7 @@ void sample_grad_retrace(const Scene& s, const Camera& c, V3 g, uint32_t seed, u
   for (int b = 0; b < max_bounces; ++b) {
     states[b] = st;
     Bounce v;
-    if (!bounce<true, true, MATS>(s, st, e, seed, sample, b, row, col, v)) break;
+    if (!bounce<true, true, MATS, 0, false, true>(s, st, e, seed, sample, b, row, col, v)) break;
     nb = b + 1;
     if (!(max_component(st.thr) > 0.f)) break;
   }
@@ -42,8 +44,8 @@ void sample_grad_retrace(const Scene& s, const Camera& c, V3 g, uint32_t seed, u
   for (int b = nb - 1; b >= 0; --b) {
     PathState again = states[b];
     Bounce v;
-    bounce<true, true, MATS>(s, again, e, seed, sample, b, row, col, v);
-    bounce_adj<MATS>(s, states[b], v, g, d_ro, d_rd, d_thr, G);
+    bounce<true, true, MATS, 0, false, true>(s, again, e, seed, sample, b, row, col, v);
+    bounce_adj<MATS, true, true>(s, states[b], v, g, d_ro, d_rd, d_thr, G);
   }
   camera_adj(s, c, dir, ndc_x, ndc_y, sx, sy, d_ro, d_rd, G);
 }
@@ -63,8 +65,8 @@ void pixel_grads(const Scene& s, int n_params, bool replay, const float* gx, con
       for (int k = 0; k < spp; ++k) {
         uint32_t sample = sample0 + (uint32_t)k, row = (uint32_t)(row0 + lrow);
         if (replay)
-          sample_grad<MATS>(s, c, g, seed, sample, max_bounces, row, (uint32_t)col, sx_scale,
-                            sy_scale, true, G);
+          sample_grad<MATS, 0, true, true>(s, c, g, seed, sample, max_bounces, row, (uint32_t)col,
+                                           sx_scale, sy_scale, true, G);
         else
           sample_grad_retrace<MATS>(s, c, g, seed, sample, max_bounces, row, (uint32_t)col,
                                     sx_scale, sy_scale, G);

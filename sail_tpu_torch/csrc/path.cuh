@@ -31,6 +31,7 @@ constexpr double INV_PI = 0.3183098861837907;
 constexpr double TWO_PI = 2.0 * PI;
 constexpr double PI_2 = PI / 2.0;
 constexpr double PI_OVER_2 = 1.570796326794896;  // constants.py's literal
+constexpr double PI_OVER_4 = 0.785398163397448;  // constants.py's literal
 constexpr float EPSILON = F(1e-5);
 constexpr float MAX_DISTANCE = F(1e5);
 constexpr float INF = F(1e5);
@@ -42,6 +43,7 @@ constexpr int MATTE = 1, MIRROR = 2, METAL = 3, GLASS = 4;
 constexpr int UNIFORM_COLOR = 0, CHECKERBOARD = 5, CHECKERBOARD2 = 7, BILERP = 8, MIXF = 9,
               SCALE = 10, UVF = 11;
 constexpr int BECKMANN = 1, TROWBRIDGE_REITZ = 2;
+constexpr int AREA = 0, POINT = 1, SPOT = 2;
 constexpr int TAG_PIXEL_JITTER = 0, TAG_BSDF = 1, TAG_LIGHT_U = 3;
 
 struct V3 {
@@ -1024,6 +1026,11 @@ struct Bounce {
   RectFrame lf;
   float lu1, lu2, pdf_a, d2, cos_l, cos_s, dist;
   V3 n_l, to_l, wl, wsh, wl_local, rad, f_light;
+  // LIGHTS builds: the light's category, an area light's shape, a spot's
+  // falloff; loff is then the shape's (AREA) or the light's (POINT, SPOT)
+  // offset
+  int lcat, lgcat;
+  float fall;
 };
 
 // A bounce in parts around its shadow ray, so that K1 can test the shadow
@@ -1129,15 +1136,208 @@ __device__ __forceinline__ void bounce_open(const Scene& s, const Frames& fr, co
   contrib = v.emit_on ? emission : V3{0.f, 0.f, 0.f};
 }
 
+// ------------------------------------------------------------- lights ----
+// The samplers (core/samplers.py) and the light samples of ops/lights.py
+// other than AREA over a RECTANGLE, which K1 compiles where ALL is set and K2
+// in its LIGHTS builds (light_sample's LIGHTS).
+__device__ __forceinline__ V3 uniform_sphere(float u1, float u2) {
+  float z = F(1.0) - F(2.0) * u1;
+  float r = sqrtf(fmaxf(F(1.0) - z * z, F(1e-12)));
+  float angle = F(2.0 * PI) * u2;
+  return {r * cosf(angle), r * sinf(angle), z};
+}
+
+// Concentric mapping of the unit square onto the unit disk; a 0 denominator
+// reads 1e-20 (its quotient is then not taken).
+__device__ __forceinline__ void concentric_disk(float u1, float u2, float& x, float& y) {
+  float uo = F(2.0) * u1 - F(1.0), vo = F(2.0) * u2 - F(1.0);
+  bool at_origin = uo == 0.f && vo == 0.f;
+  bool use_u = fabsf(uo) > fabsf(vo);
+  float uo_safe = uo == 0.f ? F(1e-20) : uo, vo_safe = vo == 0.f ? F(1e-20) : vo;
+  float r = use_u ? uo : vo;
+  float theta = use_u ? (vo / uo_safe) * F(PI_OVER_4) : F(PI_OVER_2) - (uo / vo_safe) * F(PI_OVER_4);
+  x = at_origin ? 0.f : r * cosf(theta);
+  y = at_origin ? 0.f : r * sinf(theta);
+}
+
+// The sampled band of a z-revolution shape rho = f(z) (cone, cylinder,
+// paraboloid, hyperboloid): its ends, the height z at u2, rho and rho'.
+struct Band {
+  float zmin, zmax, z, rho, drho;
+};
+
+__device__ __forceinline__ Band lateral_band(const Scene& s, int cat, int off, float u2) {
+  Band b;
+  if (cat == CONE || cat == CYLINDER) {  // p[3], h, r
+    float h = P(s, off + 3), r = P(s, off + 4);
+    b.zmin = 0.f;
+    b.zmax = h;
+    b.z = b.zmin + (b.zmax - b.zmin) * u2;
+    if (cat == CONE) {
+      float mh = fmaxf(h, F(1e-9));
+      b.rho = r * (F(1.0) - b.z / mh);
+      b.drho = -r / mh + 0.f * b.z;
+    } else {
+      b.rho = r + 0.f * b.z;
+      b.drho = 0.f * b.z;
+    }
+  } else if (cat == PARABOLOID) {  // p[3], z0, z1, r; z = k rho^2 on k's side only
+    float z0 = P(s, off + 3), z1 = P(s, off + 4), r = P(s, off + 5);
+    float zmin = fminf(z0, z1), zmax = fmaxf(z0, z1);
+    float k = zmax / fmaxf(r * r, F(1e-12));
+    b.zmin = k > 0.f ? fmaxf(zmin, 0.f) : zmin;
+    b.zmax = k < 0.f ? fminf(zmax, 0.f) : zmax;
+    b.z = b.zmin + (b.zmax - b.zmin) * u2;
+    b.rho = sqrtf(fmaxf(b.z / fmaxf(k, F(1e-12)), F(1e-12)));
+    b.drho = F(1.0) / fmaxf(F(2.0) * k * b.rho, F(1e-9));
+  } else {  // HYPERBOLOID: p[3], p1[3], p2[3], ah, ch; ah rho^2 - ch z^2 = 1
+    float a = P(s, off + 5), c = P(s, off + 8), ah = P(s, off + 9), ch = P(s, off + 10);
+    b.zmin = fminf(a, c);
+    b.zmax = fmaxf(a, c);
+    b.z = b.zmin + (b.zmax - b.zmin) * u2;
+    b.rho = sqrtf(fmaxf((F(1.0) + ch * b.z * b.z) / fmaxf(ah, F(1e-12)), F(1e-12)));
+    b.drho = ch * b.z / fmaxf(ah * b.rho, F(1e-9));
+  }
+  return b;
+}
+
+// A cube's sampled face: picked by area from u1, which is then rescaled
+// within the face (u1p), and the point's fractions f along the extent.
+struct CubeFace {
+  V3 lo, ext, f, n;  // n: the outward normal before `reverse`
+  float ax, ay, az, area, r, flo, ffa, w, u1p;
+  int face;
+};
+
+__device__ __forceinline__ CubeFace cube_face(const Scene& s, int off, float u1, float u2) {
+  CubeFace c;
+  c.lo = P3(s, off);
+  c.ext = P3(s, off + 3) - c.lo;
+  c.ax = c.ext.y * c.ext.z;  // each x-normal face
+  c.ay = c.ext.x * c.ext.z;
+  c.az = c.ext.x * c.ext.y;
+  c.area = F(2.0) * (c.ax + c.ay + c.az);
+  c.r = u1 * c.area;
+  // cumulative areas of the faces x-, x+, y-, y+, z-, z+
+  const float c1 = c.ax, c2 = F(2.0) * c.ax, c3 = F(2.0) * c.ax + c.ay,
+              c4 = F(2.0) * (c.ax + c.ay), c5 = F(2.0) * (c.ax + c.ay) + c.az;
+  c.face = (c.r >= c1) + (c.r >= c2) + (c.r >= c3) + (c.r >= c4) + (c.r >= c5);
+  c.flo = c.face == 0 ? 0.f
+          : c.face == 1 ? c1
+          : c.face == 2 ? c2
+          : c.face == 3 ? c3
+          : c.face == 4 ? c4
+                        : c5;
+  c.ffa = c.face < 2 ? c.ax : (c.face < 4 ? c.ay : c.az);
+  c.w = (c.r - c.flo) / fmaxf(c.ffa, F(1e-12));
+  c.u1p = clampf(c.w, 0.f, F(1.0));
+  const bool on_x = c.face < 2, on_y = c.face >= 2 && c.face < 4, hi = (c.face & 1) == 1;
+  const float one = hi ? F(1.0) : 0.f, sg = hi ? F(1.0) : F(-1.0);
+  c.f = {on_x ? one : c.u1p, on_x ? c.u1p : (on_y ? one : u2), (on_x || on_y) ? u2 : one};
+  c.n = {on_x ? sg : 0.f, on_y ? sg : 0.f, (on_x || on_y) ? 0.f : sg};
+  return c;
+}
+
+// A point, its normal and the area pdf on an area light's shape
+// (ops/lights.py _sample_geometry), for every shape but a rectangle and a
+// Cornell box.
+__device__ V3 area_sample(const Scene& s, int cat, int off, float u1, float u2, V3& n, float& pdf) {
+  if (cat == SPHERE) {  // center[3], radius
+    V3 d = uniform_sphere(u1, u2);
+    float r = P(s, off + 3);
+    n = from_object(d) * P(s, off + 7);
+    pdf = F(1.0) / (F(4.0 * PI) * (r * r));
+    return from_object(d * r) + P3(s, off);
+  }
+  if (cat == DISK) {  // p[3], r, inner_r; in the world xz-plane, normal +y
+    float dx, dy;
+    concentric_disk(u1, u2, dx, dy);
+    float r = P(s, off + 3), ir = P(s, off + 4);
+    V3 c = P3(s, off);
+    n = {0.f, P(s, off + 8), 0.f};
+    pdf = F(1.0) / fmaxf(F(PI) * (r * r - ir * ir), F(1e-12));
+    return {c.x + dx * r, c.y, c.z + dy * r};
+  }
+  if (cat == CUBE) {  // bmin[3], bmax[3]
+    CubeFace c = cube_face(s, off, u1, u2);
+    n = c.n * P(s, off + 9);
+    pdf = F(1.0) / fmaxf(c.area, F(1e-12));
+    return c.lo + c.ext * c.f;
+  }
+  // the lateral surface: (phi, z) uniform, over the area element rho sqrt(1 + rho'^2)
+  float phi = F(TWO_PI) * u1;
+  Band b = lateral_band(s, cat, off, u2);
+  float cp = cosf(phi), sp = sinf(phi);
+  V3 local = {b.rho * cp, b.rho * sp, b.z};
+  n = from_object(normalize(V3{cp, sp, -b.drho})) * P(s, off + emission_offset(cat) + 3);
+  float jac = b.rho * sqrtf(F(1.0) + b.drho * b.drho);
+  pdf = F(1.0) / fmaxf(F(TWO_PI) * (b.zmax - b.zmin) * jac, F(1e-12));
+  return from_object(local) + P3(s, off);
+}
+
+// light_sample (below) for a light other than AREA over a RECTANGLE: table
+// row (cat, object row, param offset lo).  POINT: origin[3], emission[3],
+// radius, its point jittered over the sphere of that radius; SPOT: origin[3],
+// cos_total_width, cos_falloff_start, emission[3], falling off about -y.
+__device__ __forceinline__ void light_sample_other(const Scene& s, Bounce& v, const Shading& sh,
+                                                   int cat, int lrow, int lo) {
+  const float nl = (float)s.n_light;
+  V3 p_l;
+  v.lcat = cat;
+  if (cat == AREA) {
+    v.lgcat = obj_cat(s, lrow);
+    v.loff = obj_off(s, lrow);
+    v.lem = lo;
+    p_l = area_sample(s, v.lgcat, v.loff, v.lu1, v.lu2, v.n_l, v.pdf_a);
+  } else {
+    v.loff = lo;
+    v.lem = lo + (cat == POINT ? 3 : 5);
+    p_l = cat == POINT ? P3(s, lo) + uniform_sphere(v.lu1, v.lu2) * P(s, lo + 6) : P3(s, lo);
+  }
+  v.to_l = p_l - v.h.p;
+  v.d2 = fmaxf(dot(v.to_l, v.to_l), F(1e-12));
+  v.wl = v.to_l * (F(1.0) / sqrtf(v.d2));
+  v.cos_s = fmaxf(dot(v.wl, sh.n), 0.f);
+  float q;
+  if (cat == AREA) {
+    v.cos_l = fmaxf(dot(v.n_l, -v.wl), 0.f);
+    q = v.cos_l * v.cos_s / (v.d2 * v.pdf_a) * nl;
+  } else if (cat == POINT) {
+    q = v.cos_s / v.d2 * nl;
+  } else {
+    float ctw = P(s, lo + 3), cfs = P(s, lo + 4), cos_t = v.wl.y;
+    float delta = (cos_t - ctw) / fmaxf(cfs - ctw, F(1e-7));
+    v.fall = cos_t < ctw ? 0.f : (cos_t >= cfs ? F(1.0) : (delta * delta) * (delta * delta));
+    q = v.fall * v.cos_s / v.d2 * nl;
+  }
+  v.rad = P3(s, v.lem) * q;
+  v.dist = length(v.to_l);
+  v.wsh = v.to_l * (F(1.0) / fmaxf(v.dist, F(1e-12)));
+}
+
 // The light sample of a bounce that samples one (matte, not emissive; its
 // uniforms lu1, lu2, lr), up to its shadow ray: from v.h.p + sh.n * 1e-4
-// along v.wsh, below v.dist * (1 - 1e-3).
-template <bool STAGED = false>
+// along v.wsh, below v.dist * (1 - 1e-3).  Without LIGHTS every light is
+// AREA over a RECTANGLE (the table says which build a scene takes); with it
+// any other light takes light_sample_other, which reads no frame, so the
+// staged (STAGED, K1) and unstaged paths both take it.
+template <bool STAGED = false, bool LIGHTS = false>
 __device__ __forceinline__ void light_sample(const Scene& s, const Frames& fr, Bounce& v,
                                              const Shading& sh, float lu1, float lu2, float lr) {
   int lidx = min((int)(lr * (float)s.n_light), s.n_light - 1);
   const int* l = s.light + 3 * lidx;
   int lrow = __ldg(l + 1);
+  if constexpr (LIGHTS) {
+    const int cat = __ldg(l);
+    if (cat != AREA || obj_cat(s, lrow) != RECTANGLE) {
+      v.lu1 = lu1;
+      v.lu2 = lu2;
+      light_sample_other(s, v, sh, cat, lrow, __ldg(l + 2));
+      return;
+    }
+    v.lcat = AREA;
+    v.lgcat = RECTANGLE;
+  }
   int loff = obj_off(s, lrow);
   v.loff = loff;
   v.lem = __ldg(l + 2);
@@ -1194,8 +1394,9 @@ __device__ __forceinline__ void advance(PathState& st, Bounce& v, const Shading&
 // from `v` as an earlier call on the same state recorded them, in place of
 // the closest-hit fold and the shadow scan; every other value is computed by
 // the same code in the same order, so a replayed bounce is the recorded one
-// bit for bit.
-template <bool ALL = true, bool CULL = true, bool MATS = true, int STRIP = 0, bool REPLAY = false>
+// bit for bit.  LIGHTS: as light_sample's.
+template <bool ALL = true, bool CULL = true, bool MATS = true, int STRIP = 0, bool REPLAY = false,
+          bool LIGHTS = false>
 __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uint32_t seed,
                                        uint32_t sample, int bounce_idx, uint32_t row, uint32_t col,
                                        Bounce& v) {
@@ -1216,7 +1417,7 @@ __device__ __forceinline__ bool bounce(const Scene& s, PathState& st, V3& e, uin
     draw3<STRIP>(stream_id(seed, sample, bounce_idx, TAG_LIGHT_U), row, col, lu1, lu2, lr);
     did_nee = v.is_matte && !v.emissive;
     if (did_nee && (STRIP & STRIP_NO_NEE) == 0) {
-      light_sample(s, none, v, sh, lu1, lu2, lr);
+      light_sample<false, LIGHTS>(s, none, v, sh, lu1, lu2, lr);
       bool occ = false;
       if constexpr (REPLAY) occ = v.occ;
       else if constexpr ((STRIP & STRIP_NO_SHADOW) == 0)

@@ -95,7 +95,7 @@ __device__ __forceinline__ V3 render_pixel(const Scene& s, const Frames& fr, boo
         draw3<STRIP>(stream_id(seed, sample, b, TAG_LIGHT_U), row, col, lu1, lu2, lr);
         did_nee = v.is_matte && !v.emissive;
         if (did_nee && (STRIP & STRIP_NO_NEE) == 0) {
-          light_sample<true>(s, fr, v, shade, lu1, lu2, lr);
+          light_sample<true, ALL>(s, fr, v, shade, lu1, lu2, lr);
           nee_light(v, shade);
           // bounce's contrib + direct * f_light, direct = rad * (occ ? 0 : 1)
           V3 c_lit = contrib + v.rad * F(1.0) * v.f_light;

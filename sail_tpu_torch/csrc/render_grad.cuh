@@ -1,6 +1,8 @@
 // K2's kernel, a template over where the gradient lives (CAP), the scene kind
-// (path.cuh's ALL and MATS), a strip mask (adjoint.cuh's GRAD_NO_*) and the
-// blocks per SM its registers are sized for; megakernel_grad.cu says what it
+// (path.cuh's ALL and MATS), a strip mask (adjoint.cuh's GRAD_NO_*), the
+// blocks per SM its registers are sized for and the scene's lights (LIGHTS:
+// a light other than AREA over a RECTANGLE, path.cuh light_sample's);
+// megakernel_grad.cu says what it
 // computes and how, grad_build.h which scene takes which build.
 // megakernel_grad.cu builds the production K2 (STRIP 0); profile_grad.cu
 // builds config 2's kind with a phase stripped, so that "full minus
@@ -17,7 +19,7 @@ inline size_t grad_smem_bytes(int cap, int n_params) {
   return (size_t)(cap == SHARED_GRAD ? THREADS + WARPS : WARPS) * (size_t)n_params * sizeof(float);
 }
 
-template <int CAP, bool ALL, bool MATS, int STRIP, int MIN_BLOCKS>
+template <int CAP, bool ALL, bool MATS, int STRIP, int MIN_BLOCKS, bool LIGHTS = false>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     render_grad_kernel(Scene s, int n_params, const float* __restrict__ gx,
                        const float* __restrict__ gy, const float* __restrict__ gz,
@@ -42,7 +44,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const Camera c = load_camera(s);
   const float sx_scale = F(2.0 / (double)width), sy_scale = F(2.0 / (double)image_height);
   for (int k = 0; k < spp; ++k) {
-    sample_grad<MATS, STRIP, ALL>(s, c, g, seed, sample0 + (uint32_t)k, max_bounces,
+    sample_grad<MATS, STRIP, ALL, LIGHTS>(s, c, g, seed, sample0 + (uint32_t)k, max_bounces,
                                   (uint32_t)(row0 + lrow), (uint32_t)col, sx_scale, sy_scale,
                                   inside, G);
   }
@@ -63,14 +65,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
 // One launch of a K2 build on `stream`: opts the kernel in to the dynamic
 // shared memory it needs, launches it, and returns the cudaError_t.
-template <int CAP, bool ALL, bool MATS, int STRIP, int MIN_BLOCKS>
+template <int CAP, bool ALL, bool MATS, int STRIP, int MIN_BLOCKS, bool LIGHTS = false>
 int launch_grad(Scene s, int n_params, const float* gx, const float* gy, const float* gz,
                 float* rows, int height, int width, int spp, uint32_t seed, uint32_t sample0,
                 int max_bounces, int row0, int image_height, cudaStream_t stream) {
   dim3 block(BLOCK_X, BLOCK_Y);
   dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y);
   size_t smem = grad_smem_bytes(CAP, n_params);
-  auto kernel = render_grad_kernel<CAP, ALL, MATS, STRIP, MIN_BLOCKS>;
+  auto kernel = render_grad_kernel<CAP, ALL, MATS, STRIP, MIN_BLOCKS, LIGHTS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

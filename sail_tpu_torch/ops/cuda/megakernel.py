@@ -21,9 +21,11 @@ K1 is built for eight scene kinds (`render_block_kernel<ALL, CULL, MATS,
 (`render_grad_kernel<CAP, ALL, MATS, 0, MIN_BLOCKS>`,
 `csrc/render_grad.cuh`) for where each thread keeps its gradient (CAP: in
 shared memory up to SHARED_GRAD_MAX_PARAMS parameters, else in a local
-array of GRAD_CAPS floats, `grad_build`), for MATS, and for configs 1-2's
+array of GRAD_CAPS floats, `grad_build`), for MATS, for configs 1-2's
 kind at two blocks per SM (the C entry's choice, `csrc/grad_build.h`;
-`grad_launch_bound` reports it); the table says which kind a scene is.
+`grad_launch_bound` reports it) and, for a light other than AREA over a
+RECTANGLE, with LIGHTS up to LIGHTS_MAX_CAP parameters; the table says
+which kind a scene is.
 
 `render_image_fast` / `render_tile_fast` are the JAX package's
 `custom_vjp`s (`megakernel.py:497-569`) as `torch.autograd.Function`s:
@@ -63,14 +65,19 @@ class Table(NamedTuple):
     n_plain: int       # rows of small categories, before the groups
     n_groups: int      # batched groups
     n_clusters: int    # cull clusters over all groups
-    all_shapes: bool   # a shape other than the benchmark scenes' three
+    all_shapes: bool   # a shape other than the benchmark scenes' three, or
+    #                    `lights`: K1's and K2's ALL builds
     materials: bool    # a material beyond matte and mirror, or a texture
     #                    beyond a uniform color
     n_frames: int      # rows up to the last rectangle: K1 stages their frames
+    lights: bool       # a light other than AREA over a RECTANGLE: K2's
+    #                    LIGHTS builds
 
 
 # The shapes K1's smaller build takes (path.cuh's `ALL`): those of the
-# benchmark scenes.  The materials and textures the kernels' smaller build
+# benchmark scenes; a light other than AREA over a RECTANGLE takes the ALL
+# build too (K1 compiles the other lights only there; K2 in its LIGHTS
+# builds).  The materials and textures the kernels' smaller build
 # takes (path.cuh's `MATS`): those of configs 1 and 2.
 _FEW_SHAPES = frozenset((C.SPHERE, C.RECTANGLE, C.CORNELLBOX))
 _FEW_MATERIALS = frozenset((C.MATTE, C.MIRROR))
@@ -87,8 +94,9 @@ def scene_table(static: SceneStatic) -> Table:
     material row, texture row, emissive, scene index) come in the
     closest-hit fold order of `intersect.fold_groups`; then (first row,
     count) per batched group, (category, offset) per material and texture
-    row, and (category, object row, offset) per light.  Raises for structure
-    outside the slice."""
+    row, and (category, object row, offset) per light, the object row -1
+    for a light with no object (POINT, SPOT).  Raises for structure outside
+    the slice."""
     off = param_offsets(static)
     plain, batched = isect.fold_groups(static)
     order = tuple(plain) + tuple(i for _, idxs in batched for i in idxs)
@@ -109,17 +117,21 @@ def scene_table(static: SceneStatic) -> Table:
         table += [cat, o]
     for cat, obj, o in zip(static.light_categories, static.area_light_objects,
                            off.lights):
-        table += [cat, row_of[obj], o]
+        table += [cat, row_of[obj] if cat == C.AREA else -1, o]
     n_clusters = sum(-(-len(idxs) // isect.CLUSTER) for _, idxs in batched)
     n_frames = 1 + max((r for r, i in enumerate(order)
                         if static.object_categories[i] == C.RECTANGLE),
                        default=-1)
+    lights = any(cat != C.AREA or static.object_categories[obj] != C.RECTANGLE
+                 for cat, obj in zip(static.light_categories,
+                                     static.area_light_objects))
     return Table(tuple(table), off, order, len(plain), len(batched),
                  n_clusters,
-                 not _FEW_SHAPES.issuperset(static.object_categories),
+                 lights or not _FEW_SHAPES.issuperset(
+                     static.object_categories),
                  not (_FEW_MATERIALS.issuperset(static.material_categories)
                       and set(static.texture_categories) <= {C.UNIFORM_COLOR}),
-                 n_frames)
+                 n_frames, lights)
 
 
 @functools.lru_cache(maxsize=64)
@@ -173,7 +185,7 @@ def _bind(source: str, name: str, argtypes):
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # The C entries' argument types, in their order (csrc/*.cu `extern "C"`).
 K1_ARGTYPES = [_PTR] * 2 + [_INT] * 11 + [_PTR] * 3 + [_INT] * 8 + [_PTR]
-K2_ARGTYPES = [_PTR] * 2 + [_INT] * 11 + [_PTR] * 4 + [_INT] * 8 + [_PTR]
+K2_ARGTYPES = [_PTR] * 2 + [_INT] * 12 + [_PTR] * 4 + [_INT] * 8 + [_PTR]
 REDUCE_ARGTYPES = [_PTR, _INT, _INT, _PTR, _PTR]
 MIN_BLOCKS_ARGTYPES = [_INT] * 4
 
@@ -293,6 +305,10 @@ GRAD_CAPS = (352, 1024, 4096)
 GRAD_BLOCK = (16, 16)   # K2's thread block: columns, rows
 SHARED_GRAD = 0
 SHARED_GRAD_MAX_PARAMS = 220
+# The largest K2 build with a light other than AREA over a RECTANGLE
+# (`megakernel_grad.cu` LIGHTS_MAX_CAP): such scenes take up to 352
+# parameters.
+LIGHTS_MAX_CAP = 352
 
 
 def grad_cap(n_params: int, caps=GRAD_CAPS) -> int:
@@ -320,12 +336,12 @@ def _grad_entries():
     lib.sail_grad_limits(limits)
     n_caps = limits[3]
     built = (tuple(limits[:2]), tuple(limits[4:4 + n_caps]),
-             limits[4 + n_caps])
-    want = (GRAD_BLOCK, GRAD_CAPS, SHARED_GRAD_MAX_PARAMS)
+             limits[4 + n_caps], limits[5 + n_caps])
+    want = (GRAD_BLOCK, GRAD_CAPS, SHARED_GRAD_MAX_PARAMS, LIGHTS_MAX_CAP)
     if built != want:
         raise RuntimeError(f"K2 was built for (block, caps, the shared "
-                           f"build's parameters) {built}, the wrapper "
-                           f"expects {want}")
+                           f"build's parameters, the largest build with "
+                           f"lights) {built}, the wrapper expects {want}")
     return (_bind(_GRAD_SOURCE, "sail_render_grad_block", K2_ARGTYPES),
             _bind(_GRAD_SOURCE, "sail_reduce_grad_rows", REDUCE_ARGTYPES),
             tuple(limits[:3]),
@@ -350,12 +366,43 @@ def grad_launch_bound(n_params: int, static: SceneStatic) -> int:
                               int(table.all_shapes), int(table.materials))
 
 
+# The partials of K2's reduce: partial t sums rows t, t + 256, ... in order.
+REDUCE_PARTIALS = 256
+
+
+def reduce_grad_rows_plain(rows: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of K2's reduce, on any device: for each
+    parameter, REDUCE_PARTIALS partials, partial t the rows t, t + 256, ...
+    added in row order to 0, then a halving tree (partial t += partial
+    t + h for h = 128 ... 1).  The kernel's sum bit for bit: every add is
+    one float32 add in the same order (the rows padded with +0, which
+    changes no partial)."""
+    n, width = rows.shape
+    k = -(-n // REDUCE_PARTIALS)
+    pad = rows.new_zeros((k * REDUCE_PARTIALS, width))
+    pad[:n] = rows
+    pad = pad.view(k, REDUCE_PARTIALS, width)
+    part = rows.new_zeros((REDUCE_PARTIALS, width))
+    for i in range(k):
+        part = part + pad[i]
+    h = REDUCE_PARTIALS // 2
+    while h > 0:
+        part = torch.cat((part[:h] + part[h:2 * h], part[2 * h:]))
+        h //= 2
+    return part[0]
+
+
 def reduce_grad_rows(rows: torch.Tensor) -> torch.Tensor:
-    """Sum the (n_blocks, n_params) partials K2 writes over blocks, in block
-    order, into one (n_params,) gradient: K2's second pass, on the card."""
-    if not (rows.is_cuda and rows.dtype == torch.float32 and rows.dim() == 2
+    """Sum the (n_blocks, n_params) partials K2 writes over blocks into one
+    (n_params,) gradient in a fixed order (`reduce_grad_rows_plain`'s): K2's
+    second pass on the card, its plain version for a CPU tensor."""
+    if not (rows.dtype == torch.float32 and rows.dim() == 2
             and rows.is_contiguous()):
-        raise TypeError("rows must be a contiguous 2-D float32 CUDA tensor")
+        raise TypeError("rows must be a contiguous 2-D float32 tensor")
+    if rows.device.type == "cpu":
+        return reduce_grad_rows_plain(rows)
+    if not rows.is_cuda:
+        raise ValueError(f"no reduce for device {rows.device}")
     out = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
     with torch.cuda.device(rows.device):
         err = _grad_entries()[1](
@@ -417,10 +464,15 @@ def render_grad_rows(params: torch.Tensor, static: SceneStatic, g: Vec3,
     image_height = height if image_height is None else image_height
     off = _check_grad_block(params, static, g, height, width, spp,
                             max_bounces, row0, image_height)
+    table = scene_table(static)
+    if table.lights and grad_build(off.size) > LIGHTS_MAX_CAP:
+        raise NotImplementedError(
+            f"K2 takes a scene with a point or spot light, or an area light "
+            f"over a shape other than a rectangle, up to {LIGHTS_MAX_CAP} "
+            f"parameters; this one has {off.size} (ROADMAP.md queue 2b)")
     if not params.is_cuda:
         raise TypeError("render_grad_rows runs K2 on the card: params must "
                         "be a CUDA tensor")
-    table = scene_table(static)
     grad_fn, _, (bx, by, max_bounces_cap), _ = _grad_entries()
     if max_bounces > max_bounces_cap:
         raise ValueError(f"K2 takes at most {max_bounces_cap} bounces; got "
@@ -432,7 +484,8 @@ def render_grad_rows(params: torch.Tensor, static: SceneStatic, g: Vec3,
         err = grad_fn(
             params.data_ptr(), _device_table(static, dev).data_ptr(),
             *_counts(static), off.camera, off.size, grad_build(off.size),
-            int(table.all_shapes), int(table.materials), g.x.data_ptr(),
+            int(table.all_shapes), int(table.materials), int(table.lights),
+            g.x.data_ptr(),
             g.y.data_ptr(), g.z.data_ptr(), rows.data_ptr(), height, width,
             spp, _int32(seed), _int32(sample0), max_bounces, row0,
             image_height, torch.cuda.current_stream(dev).cuda_stream)

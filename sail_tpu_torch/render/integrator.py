@@ -83,7 +83,7 @@ def _bounce_step(scene, state: _PathState, noise: PixelNoise, *, static,
             scan=tally.pop("scan"), shadow=tally.pop("shadow", None),
             occluded=tally.pop("occluded", None), entered=state.alive,
             alive=alive, obj_id=hit.obj_id, mat_row=hit.mat_row,
-            nee=out.skip_emission))
+            nee=out.skip_emission, light=tally.pop("light", None)))
     return out
 
 
@@ -132,6 +132,8 @@ def _bounce_shade(scene, state: _PathState, hit, alive, noise: PixelNoise,
             lu1, lu2, lr = noise.uniform3(bounce, rng.TAG_LIGHT_U)
             lidx = torch.clamp((lr * n_lights).to(torch.int32),
                                max=n_lights - 1)
+        if tally is not None:   # the light each ray samples
+            tally["light"] = lidx
         nee_mask = (ms.is_matte > 0) & (hit.emissive == 0) & alive
         direct, wi_light = lights_ops.sample_direct(
             scene.objects, scene.lights, static, hit.p, hit.n, lu1, lu2, lidx,

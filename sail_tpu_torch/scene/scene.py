@@ -8,9 +8,8 @@ flat vector is the CUDA megakernel's ABI; `unflatten` views it as the
 structured `PackedScene` the plain torch ops read.
 
 The port covers every shape category, in any number, every material and
-texture category, and so far AREA lights over a RECTANGLE.
-`check_supported` raises `NotImplementedError` naming the ROADMAP.md item
-for any other light, so an unported category never renders a wrong image.
+texture category, and every light: AREA over any shape but a Cornell box
+(which `Scene.add` refuses, as the JAX package does), POINT and SPOT.
 """
 from __future__ import annotations
 
@@ -36,7 +35,10 @@ BATCH_THRESHOLD = 8
 CAMERA_WIDTHS = (3, 3, 3, 3, 1, 1)
 CAMERA_SIZE = sum(CAMERA_WIDTHS)
 
-_TODO = "not ported yet (ROADMAP.md queue 1: {})"
+# The shapes an area light can sample (ops/lights.py `_sample_geometry`):
+# every one but the inside-out Cornell box.
+AREA_SAMPLEABLE = (C.SPHERE, C.RECTANGLE, C.DISK, C.CUBE, C.CONE, C.CYLINDER,
+                   C.PARABOLOID, C.HYPERBOLOID)
 
 
 class PackedScene(NamedTuple):
@@ -44,7 +46,7 @@ class PackedScene(NamedTuple):
     objects: tuple      # per-object SphereP / BoxP / FrustumP / ...
     materials: tuple    # material rows (deduped)
     textures: tuple     # texture rows (deduped)
-    lights: tuple       # per-light AreaLightP
+    lights: tuple       # per-light AreaLightP / PointLightP / SpotLightP
     camera: CameraParams
 
 
@@ -62,7 +64,8 @@ class SceneStatic(NamedTuple):
 
 
 def check_supported(static: SceneStatic) -> None:
-    """Raise NotImplementedError for any structure outside the slice."""
+    """Raise ValueError for a category the port does not know, or an area
+    light over a shape without an area sampler."""
     for cat in static.object_categories:
         if cat not in geometry.LAYOUTS:
             raise ValueError(f"unknown shape category {cat}")
@@ -74,15 +77,13 @@ def check_supported(static: SceneStatic) -> None:
             raise ValueError(f"unknown texture category {cat}")
     for cat, obj in zip(static.light_categories, static.area_light_objects):
         if cat not in light.LAYOUTS:
-            raise NotImplementedError(
-                f"light category {cat}: "
-                + _TODO.format("item 3b, POINT and SPOT lights"))
-        if static.object_categories[obj] != C.RECTANGLE:
-            raise NotImplementedError(
+            raise ValueError(f"unknown light category {cat}")
+        if cat == C.AREA and static.object_categories[obj] \
+                not in AREA_SAMPLEABLE:
+            raise ValueError(
                 "area light over a "
-                f"{C.SHAPE_NAMES[static.object_categories[obj]]}: "
-                + _TODO.format("item 3b, area sampling of the other emitter "
-                               "shapes"))
+                f"{C.SHAPE_NAMES[static.object_categories[obj]]}: that "
+                "shape has no area sampler")
 
 
 class Offsets(NamedTuple):
@@ -192,9 +193,12 @@ class Scene:
             self.objects.append(something)
         elif isinstance(something, Light):
             if isinstance(something, AreaLight):
-                if something.geometry.category == C.CORNELLBOX:
+                if something.geometry.category not in AREA_SAMPLEABLE:
                     raise ValueError(
-                        "AreaLight geometry Cornellbox has no area sampler")
+                        f"AreaLight geometry "
+                        f"{type(something.geometry).__name__} has no area "
+                        f"sampler; supported: Sphere, Rectangle, Disk, "
+                        f"Cube, Cone, Cylinder, Paraboloid, Hyperboloid")
                 something.index = len(self.objects)
                 self.objects.append(something.geometry)
             self.lights.append(something)

@@ -1,16 +1,18 @@
-"""The benchmark scenes the port renders (BASELINE.md configs 1, 2 and 3,
-and config 3's open twin; `sail_tpu/scenes.py` holds all of them), the
+"""The benchmark scenes the port renders (BASELINE.md configs 1 to 4, and
+config 3's open twin; `sail_tpu/scenes.py` holds all of them), the
 many-object scene of `tools/many_object_bench.py`, and check scenes for the
-shapes, the batched fold and the materials and textures.  Cameras look from
--z toward +z."""
+shapes, the batched fold, the materials and textures and the area lights.
+Cameras look from -z toward +z."""
 from __future__ import annotations
 
 import math
 
+import sys
+
 from . import (UV, AreaLight, Bilerp, Camera, Checkerboard, Checkerboard2,
                Cone, Cornellbox, Cube, Cylinder, Disk, Glass, Hyperboloid,
-               Matte, Metal, Mirror, Mix, Paraboloid, Rectangle, ScaleT,
-               Scene, Sphere, UniformColor)
+               Matte, Metal, Mirror, Mix, Paraboloid, PointLight, Rectangle,
+               ScaleT, Scene, Sphere, SpotLight, UniformColor)
 
 
 def cornell_matte(light_emission=(5.0, 5.0, 5.0)) -> Scene:
@@ -58,6 +60,54 @@ def material_demo() -> Scene:
     scene.add(Camera((0.0, 0.3, -2.8), (0.0, 0.0, 0.0)))
     scene.add(Cornellbox((-1.5, -1.0, -1.5), (1.5, 1.5, 1.5)))
     return _material_demo_objects(scene)
+
+
+def lights_and_quadrics() -> Scene:
+    """Config 4: an area, a point and a spot light over a cone, a metal
+    cylinder, a disk and a paraboloid in a Cornell box."""
+    scene = Scene()
+    scene.add(Camera((0.0, 0.6, -3.0), (0.0, 0.0, 0.0)))
+    scene.add(Cornellbox((-1.5, -1.0, -1.5), (1.5, 1.8, 1.5)))
+    scene.add(Cone((-0.8, -1.0, -0.3), 0.9, 0.35, Matte(kd=0.9)))
+    scene.add(Cylinder((0.0, -1.0, -0.5), 0.7, 0.25, Metal(roughness=0.05)))
+    scene.add(Disk((0.8, -0.99, 0.2), 0.45, 0.1, Matte(kd=1.0)))
+    scene.add(Paraboloid((0.6, -1.0, 0.6), 0.0, 0.6, 0.3, Matte(kd=0.8)))
+    scene.add(AreaLight(
+        Rectangle((-0.4, 1.78, -0.4), (0.4, 1.78, 0.4), Matte()),
+        (4.0, 4.0, 4.0)))
+    scene.add(PointLight((-1.0, 1.2, 1.0), (0.6, 0.6, 0.6)))
+    scene.add(SpotLight((1.0, 1.5, 0.0), 35.0, 10.0, (2.0, 2.0, 2.0)))
+    return scene
+
+
+def area_lights(lib=None) -> Scene:
+    """Not a benchmark config: an area light over each shape config 4 does
+    not sample (sphere, disk, cube, cone, cylinder, paraboloid with its band
+    starting at z0 = 0, hyperboloid), small and dim, in a Cornell box whose
+    walls and a matte sphere receive them in view.  `lib`: the module whose
+    scene classes build it (this package by default; a package with the
+    same classes gives the same scene)."""
+    m = sys.modules[__package__] if lib is None else lib
+    scene = m.Scene()
+    scene.add(m.Camera((0.0, 0.4, -3.0), (0.0, 0.0, 0.0)))
+    scene.add(m.Cornellbox((-1.5, -1.0, -1.5), (1.5, 1.8, 1.5)))
+    scene.add(m.Sphere((0.0, -0.45, 0.3), 0.55, m.Matte(kd=0.9)))
+    scene.add(m.AreaLight(m.Sphere((-1.0, 1.2, 0.8), 0.15, m.Matte()),
+                          (3.0, 2.5, 2.0)))
+    scene.add(m.AreaLight(m.Disk((0.9, -0.99, -0.6), 0.25, 0.05, m.Matte()),
+                          (1.5, 2.0, 3.0)))
+    scene.add(m.AreaLight(m.Cube((0.8, 0.9, 0.7), (1.1, 1.2, 1.0),
+                                 m.Matte()), (2.0, 2.0, 1.0)))
+    scene.add(m.AreaLight(m.Cone((-1.0, -1.0, -0.7), 0.5, 0.2, m.Matte()),
+                          (2.5, 1.0, 1.0)))
+    scene.add(m.AreaLight(m.Cylinder((1.1, -1.0, 0.8), 0.4, 0.12,
+                                     m.Matte()), (1.0, 2.5, 1.0)))
+    scene.add(m.AreaLight(m.Paraboloid((-0.5, -1.0, 1.0), 0.0, 0.4, 0.2,
+                                       m.Matte()), (1.0, 1.0, 2.5)))
+    scene.add(m.AreaLight(m.Hyperboloid((0.2, 1.0, 1.1), (0.2, 0.0, -0.2),
+                                        (0.25, 0.0, 0.2), m.Matte()),
+                          (2.0, 1.5, 2.5)))
+    return scene
 
 
 def material_demo_open() -> Scene:
@@ -154,7 +204,8 @@ def quadrics() -> Scene:
     """Not a benchmark config: one of each shape the configs lack (cube,
     cone, cylinder, disk, hyperboloid, paraboloid) in a Cornell box, matte
     and mirror only, under a rectangle area light: `lights_and_quadrics`
-    (BASELINE config 4) without its metal, point and spot lights."""
+    (BASELINE config 4) without its metal, point and spot lights, plus a
+    cube and a hyperboloid."""
     scene = Scene()
     scene.add(Camera((0.0, 0.6, -3.0), (0.0, 0.0, 0.0)))
     scene.add(Cornellbox((-1.5, -1.0, -1.5), (1.5, 1.8, 1.5)))

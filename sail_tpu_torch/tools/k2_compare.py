@@ -12,14 +12,15 @@ kernels a change must leave as they were.
    the parent's sources are the same), and this tree's through
    `utils/build.py`, one nvcc each, all started together.
 2. SASS: `cuobjdump -sass` of both trees' libraries.  Each kernel of K2
-   (`render_grad_kernel<...>`, production and stripped, and its reduce) and
-   of K5b/K5c (`alu_peak_kernel<...>`, `alu_peak_ilp8_kernel`) that both
+   (`render_grad_kernel<...>`, production and stripped; a parent without
+   the LIGHTS argument names `<..., false>` one argument shorter) and of
+   K5b/K5c (`alu_peak_kernel<...>`, `alu_peak_ilp8_kernel`) that both
    trees build must have the same instructions (symbols `_Z...` masked: they
    carry the file's anonymous-namespace hash) and the same `-Xptxas -v`
    resources, or it is listed under `differ`.  K1's builds
-   (`render_block_kernel<...>`, production and stripped) and K5a's
-   (`isect_only_kernel<...>`) are listed with each tree's registers, stack
-   and spills, and whether their SASS changed.
+   (`render_block_kernel<...>`, production and stripped), K5a's
+   (`isect_only_kernel<...>`) and the reduce are listed with each tree's
+   registers, stack and spills, and whether their SASS changed.
 3. K1 on the rows of PERF.md's kernel table at 1024² x 5 bounces: config 2,
    config 3, the open twin (K1-ee), 16 spheres and 64 (the cull) at 64 spp,
    256 spheres at 1 spp, config 2 through each of the four stripped builds,
@@ -30,8 +31,11 @@ kernels a change must leave as they were.
 4. K2 at the fwd+bwd step's arguments (1024² x 64 spp x 5 bounces, the
    cotangent 1/(H·W·spp) of `mean(x + y + z)` through the Function) on
    config 2, config 3 and 64 spheres, and at 1 spp on 256 spheres (the
-   many-object steps of chip_smoke.py), in turns as K1 (skipped with
-   `--no-k2`, which also skips K2's builds and SASS).
+   many-object steps of chip_smoke.py), in turns as K1; its first pass
+   (the rows) bit for bit against the parent's; and the reduce, the
+   parent's and this tree's on the same rows, bit for bit and timed per
+   launch queued behind a sleeping kernel, in turns, beside `sum(0)`
+   (skipped with `--no-k2`, which also skips K2's builds and SASS).
 Prints and writes one JSON object; its `summary` lists the rows whose
 output is not the parent's bit for bit, the rows more than 2% slower than
 the parent (median against median), and the kernels whose SASS must not
@@ -67,12 +71,13 @@ from sail_tpu_torch.utils import build
 
 SOURCES = ("megakernel", "megakernel_grad", "profile", "profile_grad")
 K2_SOURCES = ("megakernel_grad", "profile_grad")
-# the kernels whose SASS must not change (K2's builds and reduce, K5b, K5c),
-# and those K1's redesign changes (K1's builds, K5a), listed with their
-# resources
-SAME_SASS = re.compile(r"render_grad_kernel<|reduce_grad_rows_kernel|"
-                       r"alu_peak_kernel<|alu_peak_ilp8_kernel")
-K1_SASS = re.compile(r"render_block_kernel<|isect_only_kernel<")
+# the kernels whose SASS must not change (K2's builds, K5b, K5c), and those
+# listed with their resources and whether their SASS changed (K1's builds,
+# K5a, the reduce)
+SAME_SASS = re.compile(r"render_grad_kernel<|alu_peak_kernel<|"
+                       r"alu_peak_ilp8_kernel")
+K1_SASS = re.compile(r"render_block_kernel<|isect_only_kernel<|"
+                     r"reduce_grad_rows_kernel")
 SIZE, SPP, BOUNCES = 1024, 64, 5
 ROUNDS = 3
 CASES = (("cornell_mirror", SPP), ("material_demo", SPP), ("spheres64", SPP),
@@ -182,16 +187,29 @@ def sass(lib: str) -> dict:
     return out
 
 
+def parent_name(kernel: str, parent: set) -> str:
+    """A kernel's name in a parent that built it with one template argument
+    fewer: K2's `render_grad_kernel<CAP, ALL, MATS, STRIP, MIN_BLOCKS,
+    false>` is a parent's `<CAP, ALL, MATS, STRIP, MIN_BLOCKS>` (the LIGHTS
+    argument, false in every build a parent had)."""
+    short = re.sub(r"^(render_grad_kernel<(?:[^,>]+, ){4}[^,>]+), false>$",
+                   r"\1>", kernel)
+    return short if short != kernel and short in parent else kernel
+
+
 def compare_sass(parent_libs: dict, libs: dict) -> dict:
     """`same` and `differ`: the kernels of SAME_SASS both trees build;
-    `k1`: each K1 and K5a kernel's resources in both trees and whether its
-    SASS changed."""
+    `k1`: each K1, K5a and reduce kernel's resources in both trees and
+    whether its SASS changed."""
     same, differ, k1 = [], [], {}
     for name in parent_libs:
         old, new = sass(parent_libs[name]), sass(libs[name])
         with open(parent_libs[name] + ".log") as f:
             old_res = build.parse_resource_usage(f.read())
         new_res = build.resource_usage(name)
+        renamed = {parent_name(k, set(old)): k for k in new}
+        new = {parent_name(k, set(old)): v for k, v in new.items()}
+        new_res = {parent_name(k, set(old)): v for k, v in new_res.items()}
         for kernel in sorted(set(old) | set(new)):
             if K1_SASS.match(kernel):
                 k1[f"{kernel} ({name})"] = {
@@ -200,7 +218,8 @@ def compare_sass(parent_libs: dict, libs: dict) -> dict:
             elif SAME_SASS.match(kernel) and kernel in old and kernel in new:
                 equal = old[kernel] == new[kernel] \
                     and old_res.get(kernel) == new_res.get(kernel)
-                (same if equal else differ).append(f"{kernel} ({name})")
+                (same if equal else differ).append(
+                    f"{renamed.get(kernel, kernel)} ({name})")
     return {"same": same, "differ": differ, "k1": k1}
 
 
@@ -313,9 +332,11 @@ def _k1_new(params, static, spp, strip=None):
 
 
 def parent_k2(parent_dir: str, lib_path: str):
-    """The parent's K2 as a function of (params, static, g, spp) at the
-    step's shape: its C entries, bound from its source, and its build for
-    the scene's parameters.  Returns (run, its limits)."""
+    """The parent's K2 at the step's shape: its C entries, bound from its
+    source, and its build for the scene's parameters.  Returns (rows, the
+    parent's first pass as a function of (params, static, g, spp) giving
+    the (n_blocks, n_params) rows; reduce, its second pass on given rows;
+    its limits)."""
     with open(os.path.join(parent_dir, "megakernel_grad.cu")) as f:
         params_decl = entry_params(f.read())
     lib = ctypes.CDLL(lib_path)
@@ -325,14 +346,12 @@ def parent_k2(parent_dir: str, lib_path: str):
     red = lib.sail_reduce_grad_rows
     red.argtypes, red.restype = mk.REDUCE_ARGTYPES, ctypes.c_int
 
-    def run(params, static, g, spp):
+    def rows_of(params, static, g, spp):
         dev = params.device
         n = params.numel()
         bx, by = limits[0], limits[1]
         rows = torch.empty((-(-SIZE // bx) * -(-SIZE // by), n),
                            dtype=torch.float32, device=dev)
-        out = torch.empty(n, dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         t = mk.scene_table(static)
         counts = dict(zip(("n_obj", "n_plain", "n_groups", "n_mat", "n_tex",
                            "n_light"), mk._counts(static)))
@@ -341,20 +360,71 @@ def parent_k2(parent_dir: str, lib_path: str):
             table=mk._device_table(static, dev).data_ptr(), **counts,
             cam=t.offsets.camera, n_params=n, cap=parent_cap(limits, n),
             all_shapes=int(t.all_shapes), materials=int(t.materials),
+            lights=int(t.lights),
             gx=g.x.data_ptr(), gy=g.y.data_ptr(), gz=g.z.data_ptr(),
             rows=rows.data_ptr(), height=SIZE, width=SIZE, spp=spp, seed=0,
             sample0=0, max_bounces=BOUNCES, row0=0, image_height=SIZE,
-            stream=stream)
+            stream=torch.cuda.current_stream(dev).cuda_stream)
         argtypes, args = parent_args(params_decl, values)
         grad = lib.sail_render_grad_block
         grad.argtypes, grad.restype = argtypes, ctypes.c_int
         err = grad(*args)
-        err = err or red(rows.data_ptr(), rows.shape[0], n, out.data_ptr(),
-                         stream)
         if err != 0:
             raise RuntimeError(f"the parent's K2 failed: cudaError_t {err}")
+        return rows
+
+    def reduce(rows):
+        out = torch.empty(rows.shape[1], dtype=torch.float32,
+                          device=rows.device)
+        err = red(rows.data_ptr(), rows.shape[0], rows.shape[1],
+                  out.data_ptr(),
+                  torch.cuda.current_stream(rows.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the parent's reduce failed: cudaError_t "
+                               f"{err}")
         return out
-    return run, limits
+    return rows_of, reduce, limits
+
+
+def queued_ms(fn, *args, n: int = 20, runs: int = 1, **kw) -> float:
+    """Device ms per call of a short `fn` (a kernel or a few): n calls
+    queued behind a sleeping kernel, so that the host's time to launch them
+    is hidden, between CUDA events; the median of `runs` such batches."""
+    fn(*args, **kw)
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)   # ~25 ms at the SM clock
+        start.record()
+        for _ in range(n):
+            fn(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def reduce_in_turns(old_reduce, rows) -> dict:
+    """The parent's reduce and this tree's on the same rows: bit for bit,
+    and per launch queued, ROUNDS x (parent, new, new, parent), with
+    `sum(0)` beside them."""
+    a, b = old_reduce(rows), mk.reduce_grad_rows(rows)
+    ta, tb, ts = [], [], []
+    for _ in range(ROUNDS):
+        ta.append(queued_ms(old_reduce, rows))
+        tb.append(queued_ms(mk.reduce_grad_rows, rows))
+        tb.append(queued_ms(mk.reduce_grad_rows, rows))
+        ta.append(queued_ms(old_reduce, rows))
+        ts.append(queued_ms(lambda r: r.sum(0), rows))
+    return {"shape": list(rows.shape), "a_ms": ta, "b_ms": tb,
+            "a_median_ms": statistics.median(ta),
+            "b_median_ms": statistics.median(tb),
+            "sum0_median_ms": statistics.median(ts),
+            "bit_identical": bool(torch.equal(a, b)),
+            "rel_linf": float((a - b).abs().max() / a.abs().max()),
+            "finite": bool(torch.isfinite(b).all())}
 
 
 def scene_of(name: str):
@@ -396,15 +466,16 @@ def run(parent_dir: str, with_k2: bool = True) -> dict:
         out["resources"] = {k: v for k, v in build.resource_usage(
             "megakernel_grad").items() if k.startswith("render_grad")}
         out["resources_profile"] = build.resource_usage("profile_grad")
-        old_k2, old_limits = parent_k2(parent_dir,
-                                       parent_libs["megakernel_grad"])
-        out["steps"] = {}
+        old_rows, old_reduce, old_limits = parent_k2(
+            parent_dir, parent_libs["megakernel_grad"])
+        out["steps"], out["k2_rows"], out["reduce"] = {}, {}, {}
         for name, spp in CASES:
             params, static = scene_of(name).pack()
             params = params.to(dev)
             g = Vec3(*(torch.full((SIZE, SIZE), 1.0 / (SIZE * SIZE * spp),
                                   device=dev),) * 3)
-            r = in_turns(lambda: old_k2(params, static, g, spp),
+            r = in_turns(lambda: old_reduce(old_rows(params, static, g,
+                                                     spp)),
                          lambda: mk.render_grad_block(params, static, g, SIZE,
                                                       SIZE, spp, 0, 0,
                                                       BOUNCES))
@@ -414,9 +485,21 @@ def run(parent_dir: str, with_k2: bool = True) -> dict:
             r["min_blocks"] = mk.grad_launch_bound(params.numel(), static)
             r["n_params"] = params.numel()
             out["steps"][f"{name} spp{spp}"] = _row(name, r)
+            # K2's first pass alone, and the reduce on the same rows
+            old = old_rows(params, static, g, spp)
+            new = mk.render_grad_rows(params, static, g, SIZE, SIZE, spp, 0,
+                                      0, BOUNCES)
+            out["k2_rows"][f"{name} spp{spp}"] = _row(
+                f"{name} rows", {"bit_identical": bool(torch.equal(old, new)),
+                                 "shape": list(new.shape)})
+            out["reduce"][f"{name} spp{spp}"] = _row(
+                f"{name} reduce", reduce_in_turns(old_reduce, new))
     rows = {**out["k1"], **out.get("steps", {})}
+    same = {**rows, **{f"{k} rows": r for k, r in
+                       out.get("k2_rows", {}).items()},
+            **{f"{k} reduce": r for k, r in out.get("reduce", {}).items()}}
     out["summary"] = {
-        "not_bit_identical": [k for k, r in rows.items()
+        "not_bit_identical": [k for k, r in same.items()
                               if not r["bit_identical"]],
         "slower_than_parent": [k for k, r in rows.items() if r["b_median_ms"]
                                > SLOWER * r["a_median_ms"]],

@@ -75,9 +75,24 @@ SHADE_OPS = {C.MATTE: 130, C.MIRROR: 90, C.METAL: 350, C.GLASS: 300}
 TEX_OPS = {C.UNIFORM_COLOR: 0, C.CHECKERBOARD: 14, C.CHECKERBOARD2: 8,
            C.BILERP: 29, C.MIXF: 12, C.SCALE: 3, C.UVF: 4}
 # light sample, geometry terms and the light's BSDF value (before the scan)
+# of an AREA light over a RECTANGLE
 NEE_OPS = 100
-# per light, once per launch: its area pdf and oriented normal
+# per light, once per launch: a rectangle light's area pdf and oriented
+# normal
 LIGHT_OPS = 20
+# the same for every other light (path.cuh `light_sample_other`), by its
+# category or, for AREA, the shape it samples: the part every light shares
+# (to the light, d², the direction, the surface cosine, the shadow ray and
+# the BSDF value toward it) is 69; a full-precision cosf or sinf counts 10.
+# POINT: uniform_sphere (29) and the jittered origin; SPOT: the falloff; an
+# area light its sampler, normal, pdf (per sample here) and cos_l:
+# uniform_sphere, concentric_disk (38), the cube's face pick (34), the
+# lateral surface (49 and its band: cone 11, cylinder 5, paraboloid 18,
+# hyperboloid 16)
+NEE_LIGHT_OPS = {C.POINT: 109, C.SPOT: 84}
+NEE_AREA_OPS = {C.SPHERE: 126, C.DISK: 133,
+                C.CUBE: 122, C.CONE: 145, C.CYLINDER: 139,
+                C.PARABOLOID: 152, C.HYPERBOLOID: 150}
 # pixel jitter to a normalised camera ray, and the sample's sum
 CAMERA_OPS = 30
 # K5a (csrc/profile.cu `isect_only_kernel`), per path-bounce beyond the t
@@ -105,7 +120,15 @@ ADJ_SHADE_OPS = {C.MATTE: 420, C.MIRROR: 200, C.METAL: 3 * 350,
 # the shape (an atan2 and, on a sphere, an acos) where the texture reads them
 ADJ_TEX_OPS = {C.UNIFORM_COLOR: 3, C.CHECKERBOARD: 0, C.CHECKERBOARD2: 11,
                C.BILERP: 50 + 90, C.MIXF: 15, C.SCALE: 6, C.UVF: 2 + 90}
+# an unoccluded light sample's adjoint, AREA over a RECTANGLE (the frame's
+# adjoint once per object: OBJECT_ADJ_OPS), then every other light
+# (adjoint.cuh `light_adj`: the part they share 163, the sampler recomputed
+# from lu1, lu2 and its adjoint)
 ADJ_NEE_OPS = 225
+ADJ_NEE_LIGHT_OPS = {C.POINT: 206, C.SPOT: 192}
+ADJ_NEE_AREA_OPS = {C.SPHERE: 237, C.DISK: 238,
+                    C.CUBE: 269, C.CONE: 300, C.CYLINDER: 282,
+                    C.PARABOLOID: 322, C.HYPERBOLOID: 320}
 ADJ_HIT_OPS = {
     C.SPHERE: 110,
     C.CUBE: 60,
@@ -165,9 +188,31 @@ def bounce_ops(static, r: dict) -> tuple:
            + _table(ADJ_TEX_OPS, tex)[tex]) * alive
     if r["shadow"] is not None:
         nee = r["nee"].to(f64)
-        k1 = k1 + (NEE_OPS + _test_ops(r["shadow"])) * nee
-        adj = adj + ADJ_NEE_OPS * (r["nee"] & ~r["occluded"])
+        fwd, back = light_ops(static)
+        li = r["light"].long()
+        k1 = k1 + (torch.tensor(fwd, dtype=f64, device=dev)[li]
+                   + _test_ops(r["shadow"])) * nee
+        adj = adj + torch.tensor(back, dtype=f64, device=dev)[li] * (
+            r["nee"] & ~r["occluded"])
     return float(k1.sum()), float(adj.sum())
+
+
+def light_ops(static) -> tuple:
+    """(K1's, K2's adjoint's) FP32 operations of one light sample of each
+    of the scene's lights, in light order."""
+    fwd, back = [], []
+    for cat, obj in zip(static.light_categories, static.area_light_objects):
+        shape = static.object_categories[obj] if cat == C.AREA else None
+        if shape == C.RECTANGLE:
+            fwd.append(NEE_OPS)
+            back.append(ADJ_NEE_OPS)
+        elif cat == C.AREA:
+            fwd.append(NEE_AREA_OPS[shape])
+            back.append(ADJ_NEE_AREA_OPS[shape])
+        else:
+            fwd.append(NEE_LIGHT_OPS[cat])
+            back.append(ADJ_NEE_LIGHT_OPS[cat])
+    return fwd, back
 
 
 def live_ops(params, static, height: int, width: int, spp: int, seed,
@@ -209,7 +254,10 @@ def live_ops(params, static, height: int, width: int, spp: int, seed,
     pixels = float(height * width * spp)
     cats = static.object_categories
     once = float(sum(OBJECT_OPS.get(c, 0) for c in cats)
-                 + LIGHT_OPS * len(static.light_categories))
+                 + LIGHT_OPS * sum(
+                     cat == C.AREA and cats[obj] == C.RECTANGLE
+                     for cat, obj in zip(static.light_categories,
+                                         static.area_light_objects)))
     k1 = k1 * scale + CAMERA_OPS * pixels + once
     k2 = k1 + adj * scale + ADJ_CAMERA_OPS * pixels \
         + float(sum(OBJECT_ADJ_OPS.get(c, 0) for c in cats))

@@ -219,16 +219,17 @@ extern "C" int sail_render_grad_block(const float* params, const int* table, int
 def test_k2_compare_binds_a_parent_by_its_signature():
     """tools/k2_compare.py binds a parent's K2 from the parameters its
     source declares, by name: this tree's entry and the entry without
-    `all_shapes` each get their own argument list; a parameter the tool
-    does not know stops it; the parent's build comes from its limits."""
+    `all_shapes` (nor `lights`) each get their own argument list; a
+    parameter the tool does not know stops it; the parent's build comes
+    from its limits."""
     import ctypes
     from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.tools import k2_compare as kc
     names = ("params", "table", "n_obj", "n_plain", "n_groups", "n_mat",
              "n_tex", "n_light", "cam", "n_params", "cap", "all_shapes",
-             "materials", "gx", "gy", "gz", "rows", "height", "width", "spp",
-             "seed", "sample0", "max_bounces", "row0", "image_height",
-             "stream")
+             "materials", "lights", "gx", "gy", "gz", "rows", "height",
+             "width", "spp", "seed", "sample0", "max_bounces", "row0",
+             "image_height", "stream")
     values = {n: i for i, n in enumerate(names)}
     with open(os.path.join(build.CSRC_DIR, "megakernel_grad.cu")) as f:
         here = kc.entry_params(f.read())
@@ -237,7 +238,8 @@ def test_k2_compare_binds_a_parent_by_its_signature():
     assert args == [values[n] for n in names]
     old = kc.entry_params(_PARENT_K2_DECL)
     argtypes, args = kc.parent_args(old, values)
-    assert [n for _, n in old] == [n for n in names if n != "all_shapes"]
+    assert [n for _, n in old] == [n for n in names
+                                   if n not in ("all_shapes", "lights")]
     assert argtypes == [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     assert args[11] == values["materials"]
@@ -305,3 +307,23 @@ def test_k1_compare_binds_a_parent_by_its_signature():
     with pytest.raises(ValueError, match="out_x"):
         kc.parent_args([(False, n) if n == "out_x" else (p, n)
                         for p, n in old], values)
+
+
+def test_k2_compare_names_a_kernel_as_its_parent_did():
+    """K2's kernels gained a last template argument, LIGHTS, false in every
+    build a parent had: tools/k2_compare.py compares `<..., false>` with
+    the parent's name one argument shorter, and leaves every other name
+    (a LIGHTS build, K1's, a parent that has the argument) as it is."""
+    from sail_tpu_torch.tools import k2_compare as kc
+    old = {"render_grad_kernel<0, true, true, 0, 1>",
+           "render_grad_kernel<352, true, false, 0, 1>",
+           "render_block_kernel<true, false, true, 0>"}
+    assert kc.parent_name("render_grad_kernel<0, true, true, 0, 1, false>",
+                          old) == "render_grad_kernel<0, true, true, 0, 1>"
+    assert kc.parent_name("render_grad_kernel<352, true, false, 0, 1, "
+                          "false>", old) == \
+        "render_grad_kernel<352, true, false, 0, 1>"
+    for same in ("render_grad_kernel<0, true, true, 0, 1, true>",
+                 "render_grad_kernel<1024, true, true, 0, 1, false>",
+                 "render_block_kernel<true, false, true, 0>"):
+        assert kc.parent_name(same, old) == same

@@ -30,10 +30,12 @@ HOST_DIR = os.path.join(build.CSRC_DIR, "host")
 SPP = 2
 # (scene, size, bounces, cull): the benchmark scene, config 3 and its open
 # twin (paths end at different bounces), 64 spheres with and without the
-# cluster boxes, and one of each quadric
+# cluster boxes, one of each quadric, config 4 (area, point and spot
+# lights) and an area light over each of seven shapes
 CASES = (("cornell_mirror", 12, 4, False), ("material_demo", 12, 5, False),
          ("material_demo_open", 16, 5, False), ("spheres64", 8, 3, True),
-         ("spheres64", 8, 3, False), ("quadrics", 12, 4, False))
+         ("spheres64", 8, 3, False), ("quadrics", 12, 4, False),
+         ("lights_and_quadrics", 12, 4, False), ("area_lights", 12, 4, False))
 # Against the plain version: test_torch_k2_host.py's bound and reason
 # (torch.sqrt made correctly rounded; the two compute each pixel's terms in
 # other float32 orders only where torch batches them).

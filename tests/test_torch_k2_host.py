@@ -26,7 +26,10 @@ from sail_tpu_torch.utils import build
 
 HOST_DIR = os.path.join(build.CSRC_DIR, "host")
 SIZE, SPP, BOUNCES = 8, 2, 3
-SCENES = ("cornell_mirror", "material_demo")
+# configs 2, 3 and 4 (its point and spot lights) and an area light over
+# each of seven shapes (the LIGHTS adjoints)
+SCENES = ("cornell_mirror", "material_demo", "lights_and_quadrics",
+          "area_lights")
 # Against the plain version: relative L-inf (of the largest leaf) with
 # torch.sqrt made correctly rounded.  torch's CPU float32 sqrt is 1 ulp off
 # sqrtf on some inputs, which flips clip ties and moves a leaf by ~1e-3 of
@@ -142,6 +145,7 @@ def _grad_build_constants():
 
 
 SIZES = {"cornell_mirror": 72, "material_demo": 126, "quadrics": 138,
+         "lights_and_quadrics": 125, "area_lights": 168,
          "material_demo_open": 111, "material_check": 246, "spheres12": 203,
          "spheres16": 255, "spheres64": 879, "spheres256": 3375}
 
@@ -164,6 +168,7 @@ def test_k2_build_choice_fits_shared_memory():
     assert sizes == SIZES
     assert {k: mk.grad_build(v) for k, v in sizes.items()} == {
         "cornell_mirror": 0, "material_demo": 0, "quadrics": 0,
+        "lights_and_quadrics": 0, "area_lights": 0,
         "material_demo_open": 0, "spheres12": 0, "material_check": 352,
         "spheres16": 352, "spheres64": 1024, "spheres256": 4096}
 

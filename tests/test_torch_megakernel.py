@@ -93,15 +93,54 @@ def _point_light():
     return scene
 
 
+def _cornell_light():
+    """A Cornell box as an area light, which `Scene.add` refuses: its
+    static structure made by hand."""
+    params, static = _from_jax(_disk_light())
+    cats = list(static.object_categories)
+    cats[static.area_light_objects[0]] = 9   # CORNELLBOX
+    return params, static._replace(object_categories=tuple(cats))
+
+
+def _unknown_light():
+    params, static = _from_jax(_point_light())
+    return params, static._replace(light_categories=(7,))
+
+
+def _unknown_shape():
+    params, static = _from_jax(_point_light())
+    return params, static._replace(object_categories=(12,))
+
+
 @pytest.mark.parametrize("scene_fn,match", [
-    (_point_light, "not ported yet"),
-    (jscenes.lights_and_quadrics, "not ported yet"),
-    (_disk_light, "area sampling of the other emitter shapes"),
+    (_unknown_light, "unknown light category 7"),
+    (_unknown_shape, "unknown shape category 12"),
+    (_cornell_light, "no area sampler"),
 ])
 def test_unsupported_structure_raises(scene_fn, match):
-    params, static = _from_jax(scene_fn())
-    with pytest.raises(NotImplementedError, match=match):
+    """Every light and shape renders now (tests/test_torch_lights.py); what
+    the kernels cannot take is a category they do not know and an area
+    light over a Cornell box."""
+    params, static = scene_fn()
+    with pytest.raises(ValueError, match=match):
         mk.render_block(params, static, 4, 4, 1, 0, 0, 1)
+
+
+@pytest.mark.parametrize("scene_fn", [_point_light, _disk_light,
+                                      jscenes.lights_and_quadrics])
+def test_every_light_renders_through_the_wrapper(scene_fn):
+    """The scenes the port once refused (a point light, a disk light,
+    config 4) render through the wrapper on CPU tensors, as the JAX
+    package renders them."""
+    from sail_tpu.render import integrator as jintegrator
+    packed, jstatic = scene_fn().pack()
+    params, static = _from_jax(scene_fn())
+    got = mk.render_block(params, static, 6, 6, 1, 0, 0, 2)
+    want = jintegrator.render_sample(packed, jstatic, 6, 6, 0, 0,
+                                     max_bounces=2).color
+    assert torch.isfinite(got.stack()).all()
+    np.testing.assert_allclose(got.stack().numpy(), np.asarray(want.stack()),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_bad_arguments_raise():

@@ -139,3 +139,27 @@ def test_no_shadow_scan_bound_keeps_the_light_sample(monkeypatch):
     assert no_nee < no_shadow < full
     monkeypatch.setattr(opcount, "NEE_OPS", 0)
     assert k1("no_shadow_scan") == pytest.approx(no_nee, rel=1e-12)
+
+
+def test_each_light_has_its_own_hand_count(monkeypatch):
+    """Each light category, and each shape an area light samples, has its
+    own forward and adjoint count (the rectangle's are NEE_OPS and
+    ADJ_NEE_OPS, so every earlier bound stays); the counts follow the light
+    each ray sampled: on config 4 the point light's count moves K1's total
+    by exactly its share of the light samples."""
+    params, static = scenes.area_lights().pack()
+    fwd, back = opcount.light_ops(static)
+    assert len(fwd) == len(back) == 7 and len(set(fwd)) == 7
+    assert min(fwd) > opcount.NEE_OPS and min(back) > opcount.ADJ_NEE_OPS
+    params4, static4 = scenes.lights_and_quadrics().pack()
+    assert opcount.light_ops(static4) == (
+        [opcount.NEE_OPS, opcount.NEE_LIGHT_OPS[C.POINT],
+         opcount.NEE_LIGHT_OPS[C.SPOT]],
+        [opcount.ADJ_NEE_OPS, opcount.ADJ_NEE_LIGHT_OPS[C.POINT],
+         opcount.ADJ_NEE_LIGHT_OPS[C.SPOT]])
+    k1 = opcount.live_ops(params4, static4, 8, 8, 1, 0, 2)[0]
+    point = opcount.NEE_LIGHT_OPS[C.POINT]
+    monkeypatch.setitem(opcount.NEE_LIGHT_OPS, C.POINT, point + 1000)
+    more = opcount.live_ops(params4, static4, 8, 8, 1, 0, 2)[0]
+    samples = (more - k1) / 1000
+    assert samples == int(samples) and 0 < samples < 8 * 8 * 2
