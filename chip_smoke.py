@@ -118,6 +118,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      render_image_fast(lights_and_quadrics, 1024², 64 spp, 5 bounces) ->
      mean(x+y+z) -> backward() through one K1, one K2 and one reduce
      launch, timed, its gradient K2's bit for bit.
+ 11. display and runtime: BASELINE config 4 whole, Renderer(1024, 1024,
+     seed=0, max_bounces=5) -> update(lights_and_quadrics with its Gaussian
+     filter) -> render_spp(256) through one K1 launch -> output, K1 and
+     output timed, the frame held against the same filter on the CPU from
+     the same accumulation; config 2 at 1024² x 64 x 5: the lazy G-buffer
+     fill timed and held against the CPU's (excusing only pixels whose
+     ray grazes a sphere), and output() for each of the 11 filters timed
+     and held against the filter on the CPU; a fresh Renderer that loads a
+     32-spp checkpoint and renders 32 more equal to the render that went
+     on, and to one render_spp(64); the viewer's loop at 256² (Control:
+     a pick and an 8-move drag of the matte sphere, 8 orbit moves, a zoom;
+     each event a frame: render_spp(1) + output(gamma) with the selection
+     box + png_bytes), timed by part, and pick on the card against the CPU
+     on a 16 x 16 grid of pixels.
 Every kernel's bound is computed from this run's inputs: the FP32
 operations the plain version's masks say these paths need
 (sail_tpu_torch/utils/opcount.py) over 67 TFLOP/s, or the bytes over
@@ -174,6 +188,15 @@ CHECK = (64, 4, 3)
 ALIVE_SAMPLES = 4
 # phase 10: config 4's forward at BASELINE's samples per pixel
 LIGHTS_SPP = 256
+# phase 11: the display filters' bound against their run on the CPU (atol =
+# rtol; the same float32 ops on both, exp and pow within an ulp), the
+# checkpoint's halves, and the viewer's frame size (examples/viewer.py)
+# with its picking grid and drag, orbit and zoom events
+FILTER_TOL = 1e-5
+RESUME_SPP = 32
+VIEWER = 256
+PICK_GRID = 16
+DRAG_MOVES = ORBIT_MOVES = 8
 # phase 8: K5a's check shape (size, spp, bounces), the stripped builds',
 # K5b/K5c's tolerance for the rsqrt mixes (rsqrtf against torch.rsqrt,
 # relative, elementwise), and the tools' shapes (size, spp, bounces)
@@ -1531,6 +1554,235 @@ def lights_path(dev, card: str) -> list:
                    build=k2_build(params.numel(), static))]
 
 
+def host_ms(fn, *args, runs: int = 1, **kw):
+    """(last result, median ms) of `runs` calls on the host clock, each
+    ending in torch.cuda.synchronize()."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return res, statistics.median(times)
+
+
+def display_path(dev, card: str) -> list:
+    """Phase 11: display and runtime.  BASELINE config 4 whole (its Gaussian
+    filter), every filter and the lazy G-buffer on config 2, the fresh
+    Renderer's resume, and the viewer's loop at VIEWER², each held against
+    the CPU.  K1 is the only kernel (phases 3 and 10 give its rows)."""
+    import tempfile
+
+    from sail_tpu_torch import Renderer, scenes
+    from sail_tpu_torch.core.vecmath import Vec3
+    from sail_tpu_torch.ops import filters
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.render import integrator, overlay, picking
+    from sail_tpu_torch.render.control import Control
+    from sail_tpu_torch.scene.scene import VALID_FILTERS, unflatten
+    from sail_tpu_torch.tools.goldens import grazing_pixels
+    from sail_tpu_torch.utils.imageio import png_bytes
+
+    def cpu(v):
+        return Vec3(*(t.cpu() for t in v))
+
+    def held(label, got, want, tol=FILTER_TOL):
+        d = np.abs(got.astype(np.float64) - want)
+        bad = int((d > tol + tol * np.abs(want)).sum())
+        if bad or got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{label}: {bad} values outside {tol:g} of "
+                                 f"the CPU, max_abs {d.max():.3g}")
+        return float(d.max())
+
+    out_line = []
+    mk.render_block.launches = 0
+    # -- BASELINE config 4 whole: its Gaussian filter -------------------------
+    scene = scenes.lights_and_quadrics()
+    scene.filter = "gaussian"
+    r = Renderer(W, H, seed=0, max_bounces=BOUNCES)
+    r.update(scene)
+    _, k1_ms = cuda_ms(r.render_spp, scene, LIGHTS_SPP)
+    launches4 = mk.render_block.launches
+    out, out_ms = host_ms(r.output, scene, runs=TIMED_RUNS + 1)
+    want = filters.apply_filter("gaussian", cpu(r.current())).stack().numpy()
+    err = held("config 4 gaussian", out, want)
+    if launches4 != 1:
+        raise AssertionError(f"config 4 made {launches4} K1 launches, not 1")
+    out_line.append(
+        f"config 4 lights_and_quadrics {W}x{H} spp{LIGHTS_SPP} b{BOUNCES} "
+        f"gaussian: {launches4} K1 launch, render_spp {k1_ms:.2f} ms, "
+        f"output {out_ms:.2f} ms (median of {TIMED_RUNS + 1}), frame mean "
+        f"{out.mean():.4f}, vs CPU max_abs {err:.3g}")
+
+    # -- config 2: the lazy G-buffer and every filter ---------------------------
+    scene = scenes.cornell_mirror()
+    r = Renderer(W, H, seed=0, max_bounces=BOUNCES)
+    r.update(scene)
+    r.render_spp(scene, SPP)
+    scene.filter = "normal"
+    _, first_ms = host_ms(r.output, scene)       # fills the G-buffer
+    packed = unflatten(r._params, r._static)
+    gbuf, fill_ms = host_ms(integrator.gbuffer, packed, r._static, H, W, 0,
+                            0, runs=TIMED_RUNS)
+    params, static = scene.pack()
+    want_gb = integrator.gbuffer(unflatten(params, static), static, H, W, 0,
+                                 0)
+    for a, b in zip(gbuf, (r._normal, r._position)):
+        if not torch.equal(a.stack(), b.stack()):
+            raise AssertionError("the G-buffer is not the same on repeat")
+    d = np.zeros((H, W), bool)
+    gb_err = 0.0
+    for a, b in zip(gbuf, want_gb):
+        a, b = a.stack().cpu().numpy(), b.stack().numpy()
+        diff = np.abs(a.astype(np.float64) - b)
+        d |= (diff > TOL + TOL * np.abs(b)).any(-1)
+        gb_err = max(gb_err, float(diff.max()))
+    bad = {tuple(map(int, p)) for p in np.argwhere(d)}
+    graze = grazing_pixels(params, static, H, W, 1) if bad else set()
+    if bad - graze:
+        raise AssertionError(f"the card's G-buffer is off the CPU's at "
+                             f"{len(bad - graze)} pixels that do not graze a "
+                             f"sphere: {sorted(bad - graze)[:8]}")
+    gnormal, gposition = cpu(r._normal), cpu(r._position)
+    current = cpu(r.current())
+    per_filter = []
+    for name in VALID_FILTERS:
+        scene.filter = name
+        out, ms = host_ms(r.output, scene, runs=TIMED_RUNS)
+        _, filter_ms = host_ms(filters.apply_filter, name, r.current(),
+                               r._normal, r._position, runs=TIMED_RUNS)
+        want = filters.apply_filter(name, current, gnormal,
+                                    gposition).stack().numpy()
+        per_filter.append(f"{name} {ms:.2f} ms (the filter {filter_ms:.2f}; "
+                          f"max_abs {held(name, out, want):.2g})")
+    out_line.append(
+        f"config 2 cornell_mirror {W}x{H} spp{SPP} b{BOUNCES}: first "
+        f"output(normal) {first_ms:.2f} ms with the G-buffer fill, the fill "
+        f"{fill_ms:.2f} ms (median of {TIMED_RUNS}), vs CPU max_abs "
+        f"{gb_err:.3g}, {len(bad)} pixels over {TOL:g}, all grazing a "
+        f"sphere; output per filter (median of {TIMED_RUNS}; the filter "
+        f"alone on the card; vs the CPU at {FILTER_TOL:g}): "
+        + ", ".join(per_filter))
+
+    # -- checkpoint: a fresh Renderer resumes ----------------------------------
+    scene = scenes.cornell_mirror()
+    r = Renderer(W, H, seed=0, max_bounces=BOUNCES)
+    r.update(scene)
+    r.render_spp(scene, RESUME_SPP)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        r.save(path)
+        r.render_spp(scene, RESUME_SPP)
+        fresh = Renderer(W, H, seed=0, max_bounces=BOUNCES)
+        fresh.load(path)
+    fresh.render_spp(scene, RESUME_SPP)
+    one = Renderer(W, H, seed=0, max_bounces=BOUNCES)
+    one.update(scene)
+    one.render_spp(scene, 2 * RESUME_SPP)
+    resumed = fresh.current().stack()
+    rel = {}
+    # against the render that went on: the same sums (the checkpoint's
+    # mean times its count is exact, a power of two); against one launch
+    # the last RESUME_SPP nonnegative samples are added in another order,
+    # at most 2 * RESUME_SPP roundings of 2^-24 of the sum apart
+    for label, other, rtol in (("went on", r, 1e-6),
+                               ("one launch", one, 2 * RESUME_SPP * 2**-24)):
+        ref = other.current().stack()
+        rel[label] = float(((resumed - ref).abs() / ref.abs().clamp(
+            min=1e-30)).max())
+        if fresh.sample_count != 2 * RESUME_SPP or not torch.allclose(
+                resumed, ref, rtol=rtol, atol=0):
+            raise AssertionError(f"the fresh Renderer's resume is off the "
+                                 f"render that {label} by {rel[label]:.3g} "
+                                 f"relative ({fresh.sample_count} samples)")
+    out_line.append(
+        f"resume cornell_mirror {W}x{H}: render_spp({RESUME_SPP}) -> save -> "
+        f"fresh Renderer load -> render_spp({RESUME_SPP}): max rel diff "
+        f"{rel['went on']:.3g} against the render that went on (bound "
+        f"1e-6), {rel['one launch']:.3g} against one "
+        f"render_spp({2 * RESUME_SPP}) (bound {2 * RESUME_SPP * 2**-24:.3g})")
+
+    # -- the viewer's loop ----------------------------------------------------
+    scene = scenes.cornell_mirror()
+    scene.filter = "gamma"
+    r = Renderer(VIEWER, VIEWER, seed=0, max_bounces=BOUNCES)
+    r.update(scene)
+    ctl = Control(scene, VIEWER, VIEWER)
+    matte = 2
+    xy, _ = overlay.project_points(
+        scene.camera, np.asarray([scene.objects[matte].center]), VIEWER,
+        VIEWER)
+    x, y = float(xy[0, 0]), float(xy[0, 1])
+    parts = {"frame": [], "K1": [], "output": [], "overlay": [], "png": []}
+    png = b""
+
+    def frame():
+        nonlocal png
+        t0 = time.perf_counter()
+        _, k1 = host_ms(r.render_spp, scene, 1)
+        img, o = host_ms(r.output, scene)
+        _, ov = host_ms(overlay.draw_selection, img.copy(), scene,
+                        scene.select)
+        png, p = host_ms(png_bytes, img)
+        parts["frame"].append((time.perf_counter() - t0) * 1e3)
+        for k, v in (("K1", k1), ("output", o), ("overlay", ov), ("png", p)):
+            parts[k].append(v)
+        if img.shape != (VIEWER, VIEWER, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"viewer frame {img.shape} not finite")
+
+    c0 = scene.objects[matte].center
+    if not ctl.mouse_down(x, y) or scene.select != matte:
+        raise AssertionError(f"mouse_down at ({x:.1f}, {y:.1f}) picked "
+                             f"{scene.select}, not the matte sphere")
+    frame()
+    for k in range(1, DRAG_MOVES + 1):
+        ctl.mouse_move(x + 2 * k, y - k)
+        frame()
+    ctl.mouse_up()
+    if scene.objects[matte].center == c0 or scene.moving:
+        raise AssertionError("the drag left the matte sphere where it was "
+                             "or the scene moving")
+    frame()
+    for _ in range(ORBIT_MOVES):
+        ctl.orbit(6, 2)
+        frame()
+    ctl.zoom(+1)
+    frame()
+    if not png.startswith(b"\x89PNG"):
+        raise AssertionError("png_bytes gave no PNG")
+    step = VIEWER // PICK_GRID
+    grid = [(step // 2 + step * i, step // 2 + step * j)
+            for i in range(PICK_GRID) for j in range(PICK_GRID)]
+    on_card = [picking.pick(scene, px, py, VIEWER, VIEWER)
+               for px, py in grid]
+    on_cpu = [picking.pick(scene, px, py, VIEWER, VIEWER, device="cpu")
+              for px, py in grid]
+    if on_card != on_cpu:
+        raise AssertionError(f"pick on the card differs from the CPU at "
+                             f"{sum(a != b for a, b in zip(on_card, on_cpu))} "
+                             f"pixels")
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    out_line.append(
+        f"viewer cornell_mirror {VIEWER}x{VIEWER} b{BOUNCES}, "
+        f"{len(parts['frame'])} frames (a pick, {DRAG_MOVES} drag moves, "
+        f"release, {ORBIT_MOVES} orbit moves, a zoom): median frame "
+        f"{med['frame']:.2f} ms = K1 (render_spp(1)) {med['K1']:.3f} + "
+        f"output (gamma + overlay) {med['output']:.3f} + PNG "
+        f"{med['png']:.3f} ms, the overlay alone {med['overlay']:.3f} ms, "
+        f"PNG {len(png)} B; pick on the card = CPU on "
+        f"{PICK_GRID}x{PICK_GRID} pixels "
+        f"({sum(i is not None for i in on_card)} on an object)")
+    # one each for config 4 and config 2, four for the resume, one a frame
+    launches = mk.render_block.launches
+    if launches != 6 + len(parts["frame"]):
+        raise AssertionError(f"phase 11 made {launches} K1 launches, not "
+                             f"{6 + len(parts['frame'])}")
+    print(f"phase 11 display and runtime: {launches} K1 launches | "
+          + " | ".join(out_line) + f" | {card}", flush=True)
+    return []
+
+
 def kernel_vs_plain(dev, card: str) -> list:
     """Phase 2: K1 against its plain version on the card, and the goldens.
     Returns no kernel entry (phase 3 gives K1's)."""
@@ -1712,7 +1964,7 @@ def main() -> int:
                       (4, gradient_path), (5, many_objects),
                       (6, many_gradients), (7, materials_path),
                       (8, profiling_path), (9, k2_phases),
-                      (10, lights_path)):
+                      (10, lights_path), (11, display_path)):
         t1 = time.perf_counter()
         kernels += fn(dev, card)
         seconds[phase] = time.perf_counter() - t1

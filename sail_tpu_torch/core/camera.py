@@ -10,7 +10,8 @@ from typing import NamedTuple
 
 import torch
 
-from .vecmath import Vec3
+from ..utils.device import resolve
+from .vecmath import Vec3, vec3
 
 
 class CameraParams(NamedTuple):
@@ -23,23 +24,26 @@ class CameraParams(NamedTuple):
     aspect: torch.Tensor
 
 
-def _splat(v) -> Vec3:
-    return Vec3(*(torch.tensor(float(c), dtype=torch.float32) for c in v))
+def _splat(v, device) -> Vec3:
+    return vec3(*(float(c) for c in v), device=device)
 
 
 def make_camera(eye, center, up=(0.0, 1.0, 0.0), fovy: float = 55.0,
-                aspect: float = 1.0) -> CameraParams:
-    eye = _splat(eye)
-    center = _splat(center)
-    up = _splat(up)
+                aspect: float = 1.0, device=None) -> CameraParams:
+    """The camera basis on `device` (the card unless the caller asks for
+    another device)."""
+    device = resolve(device, "make_camera")
+    eye = _splat(eye, device)
+    center = _splat(center, device)
+    up = _splat(up, device)
     z = (eye - center).normalize()
     x = z.cross(up).normalize()       # = -(up × z): reference's flip
     y = z.cross(-x).normalize()       # y from the un-negated basis
     return CameraParams(
         eye=eye, right=x, up=y, back=z,
         tan_half_fovy=torch.tensor(math.tan(fovy * math.pi / 360.0),
-                                   dtype=torch.float32),
-        aspect=torch.tensor(aspect, dtype=torch.float32),
+                                   dtype=torch.float32, device=device),
+        aspect=torch.tensor(aspect, dtype=torch.float32, device=device),
     )
 
 
@@ -59,3 +63,24 @@ def rays_for_pixels(cam: CameraParams, ii, jj, height: int, width: int,
         cam.right.z * sx + cam.up.z * sy - cam.back.z,
     ).normalize()
     return cam.eye.broadcast_to(d.shape), d
+
+
+def _to(x, device):
+    if isinstance(x, Vec3):
+        return Vec3(*(c.to(device) for c in x))
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def generate_rays(cam: CameraParams, height: int, width: int,
+                  jitter_x=None, jitter_y=None,
+                  device=None) -> tuple[Vec3, Vec3]:
+    """Primary rays of a whole H×W image: (origins, directions), each a Vec3
+    of (H, W) tensors on `device` (the card unless the caller asks for
+    another device; the camera and jitter are moved there); jitter_x/y are
+    optional per-pixel uniforms in [0, 1) (the pixel center without them)."""
+    dev = resolve(device, "generate_rays")
+    cam = CameraParams(*(_to(f, dev) for f in cam))
+    jj = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    ii = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    return rays_for_pixels(cam, ii, jj, height, width, _to(jitter_x, dev),
+                           _to(jitter_y, dev))

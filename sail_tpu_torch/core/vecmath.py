@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.device import resolve
+
 
 class Vec3(NamedTuple):
     x: torch.Tensor
@@ -110,6 +112,14 @@ def clip(x: torch.Tensor, lo: float = None, hi: float = None) -> torch.Tensor:
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
     """1/sqrt(x) with two correctly rounded steps (the kernel's `1.0f/sqrtf`)."""
     return 1.0 / torch.sqrt(x)
+
+
+def vec3(x, y, z, dtype=torch.float32, device=None) -> Vec3:
+    """A Vec3 of three tensors of `dtype` on `device` (the card unless the
+    caller asks for another device), from numbers or tensors."""
+    device = resolve(device, "vec3")
+    return Vec3(*(torch.as_tensor(v, dtype=dtype, device=device)
+                  for v in (x, y, z)))
 
 
 def where(c: torch.Tensor, a: Vec3, b: Vec3) -> Vec3:

@@ -24,6 +24,9 @@ each bounce's masks and the tests its scans ran, from which
 `utils/opcount.py` counts the work the inputs need; it never changes a value
 either.  The plain version runs in the parameters' dtype, so float64
 parameters give a float64 witness of the same estimator.
+
+`gbuffer` gives the display's G-buffer: the first hit's normal and position
+of one sample's camera rays, from the closest-hit scan alone.
 """
 from __future__ import annotations
 
@@ -233,12 +236,44 @@ def render_sample(scene, static, height: int, width: int, seed, sample_idx,
         ii, jj = ii.expand(shape), jj.expand(shape)
         sample_idx = sample_idx + torch.arange(
             n_samples, dtype=torch.int64, device=like.device).view(-1, 1, 1)
+    noise, ro, rd = _camera_rays(scene, seed, sample_idx, ii, jj,
+                                 image_height, width)
+    return trace_rays(scene, static, ro, rd, noise, max_bounces, cull=cull,
+                      tally=tally, early_exit=early_exit)
+
+
+def _camera_rays(scene, seed, sample_idx, ii, jj, image_height: int,
+                 width: int):
+    """(noise, origins, directions) of the jittered camera rays through the
+    global pixels (ii, jj) in sample `sample_idx`."""
+    like = scene.camera.eye.x
     noise = PixelNoise(seed, sample_idx, ii, jj)
     jx, jy, _ = noise.uniform3(0, rng.TAG_PIXEL_JITTER)
     ro, rd = rays_for_pixels(scene.camera, ii.to(like.dtype),
                              jj.to(like.dtype), image_height, width, jx, jy)
-    return trace_rays(scene, static, ro, rd, noise, max_bounces, cull=cull,
-                      tally=tally, early_exit=early_exit)
+    return noise, ro, rd
+
+
+@torch.no_grad()
+def gbuffer(scene, static, height: int, width: int, seed,
+            sample_idx: int) -> tuple[Vec3, Vec3]:
+    """The G-buffer of sample `sample_idx`: (normal, position) of each
+    camera ray's first hit, the normal the shading normal turned to face
+    the ray (a miss gives -0 and 0).  Only the closest-hit scan runs, over
+    row blocks of up to RAYS_PER_PASS rays."""
+    like = scene.camera.eye.x
+    rows = max(1, RAYS_PER_PASS // width)
+    normal, position = [], []
+    for row0 in range(0, height, rows):
+        ii, jj = pixel_grid(min(rows, height - row0), width, row0,
+                            like.device)
+        _, ro, rd = _camera_rays(scene, seed, sample_idx, ii, jj, height,
+                                 width)
+        hit = isect.intersect_scene(scene.objects, static, ro, rd)
+        normal.append(hit.n)
+        position.append(hit.p)
+    return tuple(Vec3(*(torch.cat(parts) for parts in zip(*vs)))
+                 for vs in (normal, position))
 
 
 def render_sum(scene, static, height: int, width: int, spp: int, seed,

@@ -26,6 +26,7 @@ from .light import AreaLight, Light
 
 VALID_FILTERS = ("color", "gamma", "tonemapping", "normal", "position",
                  "box", "triangle", "gaussian", "mitchell", "sinc", "wavelet")
+VALID_TRACERS = ("path",)
 
 # Objects per shape category from which the JAX package folds the category
 # as one batched group after the other objects (`sail_tpu/ops/intersect.py`
@@ -156,9 +157,12 @@ class Camera:
         self.fovy = float(fovy)
         self.aspect = float(aspect)
 
+    def update(self):
+        """No-op: packing always reads the current eye, center and up."""
+
     def pack(self) -> tuple:
         cam = make_camera(self.eye, self.center, self.up, self.fovy,
-                          self.aspect)
+                          self.aspect, device="cpu")
         return tuple(float(v) for v in (*cam.eye, *cam.right, *cam.up,
                                          *cam.back, cam.tan_half_fovy,
                                          cam.aspect))
@@ -170,8 +174,10 @@ class Scene:
         self.objects: list[Object3D] = []
         self.lights: list[Light] = []
         self.sample_count = 0
+        self._trace = "path"
         self._filter = "color"
         self.filter_params: dict = {}
+        self.select: Optional[int] = None   # object index the overlay boxes
         self.moving = False
 
     @property
@@ -185,6 +191,19 @@ class Scene:
             self.filter_params = dict(params)
         if name in VALID_FILTERS:
             self._filter = name
+
+    @property
+    def trace(self) -> str:
+        return self._trace
+
+    @trace.setter
+    def trace(self, name: str):
+        if name in VALID_TRACERS:
+            self._trace = name
+
+    @property
+    def eye(self):
+        return self.camera.eye
 
     def add(self, something):
         if isinstance(something, Camera):
@@ -204,6 +223,12 @@ class Scene:
             self.lights.append(something)
         else:
             raise TypeError(f"cannot add {type(something)!r} to scene")
+
+    def update(self):
+        """After the camera moved: the next render starts a new count."""
+        if self.camera is not None:
+            self.camera.update()
+        self.sample_count = 0
 
     def pack(self) -> tuple[torch.Tensor, SceneStatic]:
         """(flat float32 parameter tensor on the CPU, SceneStatic)."""
