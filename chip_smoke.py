@@ -56,9 +56,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      for bit), printed as one JSON line.
   6. gradients on the new shapes and many objects: K2 against its plain
      version (relative L-inf and per leaf) on the quadrics and 12-sphere
-     scenes at 64² and on 64 and 256 spheres (879 and 3,375 parameters) at
-     32² x 1 spp, bit-identical on repeat; then render_image_fast on 64
-     spheres at 1024² x 64 spp x 5 bounces and on 256 spheres at 1 spp ->
+     scenes at 64², bit-identical on repeat; then render_image_fast on 64
+     spheres (879 parameters) at 1024² x 64 spp x 5 bounces and on 256
+     (3,375) at 1 spp ->
      mean(x+y+z) -> backward(), each through exactly one K1, one K2 and one
      reduce launch, timed, its gradient K2's at the same arguments bit for
      bit; K2 (and the 256-sphere step's K1) held against the plain version
@@ -175,12 +175,16 @@ ADAM_STEPS = 5
 # tools/many_object_bench.py, and 32 for the cull's crossover), and the
 # full-width row tiles at which each path's kernels are held against their
 # plain versions (the plain K2 keeps one pass's autograd graph, ~70 KB a ray
-# at 64 spheres): (rows, first row) of the 1024-row image
+# at 64 spheres; its runs and their per-pixel split took 217 of phase 6's
+# 244 s on an H100, with checks at 32² on 64 and 256 spheres beside the
+# steps' tiles of the same builds; on 256 spheres the plain version costs
+# its launches, not its pixels, 8 rows as long as 16, so those builds are
+# held on the steps' tiles alone): (rows, first row) of the 1024-row image
 FEW, MANY, MOST = 16, 64, 256
 SWEEP_COUNTS = (4, 16, 32, 64, 128, 256)
 SWEEP_SIZE, SWEEP_SPP, SWEEP_BOUNCES = 512, 8, 3
 K1_TILE = (32, 496)
-K2_TILE = {MANY: (4, 510), MOST: (16, 504), "material_demo": (8, 508),
+K2_TILE = {MANY: (2, 511), MOST: (8, 508), "material_demo": (8, 508),
            "cornell_mirror": (32, 496)}
 # phase 7: the check scenes' shape (the goldens'), and the samples of the
 # open scene's alive fractions at the main path's size
@@ -197,6 +201,18 @@ RESUME_SPP = 32
 VIEWER = 256
 PICK_GRID = 16
 DRAG_MOVES = ORBIT_MOVES = 8
+# phase 12: BASELINE config 5 (inverse rendering; tools/inverse_artifact.py)
+# at its spec size, the train steps run and their learning rate; the edge
+# terms held on the card against the CPU at BND_CHECK² with the step's
+# settings (per leaf |diff| <= BND_RTOL·|cpu| + BND_ATOL·max|cpu|: the same
+# float32 operations on both, a transcendental an ulp apart); and the
+# central difference's step, as inverse_artifact's own checks take it
+INV_SIZE, INV_SPP, INV_BOUNCES = 1024, 16, 4
+INV_STEPS = 5
+INV_LR = 0.025
+BND_CHECK = 64
+BND_RTOL, BND_ATOL = 1e-4, 1e-4
+FD_EPS = 1e-2
 # phase 8: K5a's check shape (size, spp, bounces), the stripped builds',
 # K5b/K5c's tolerance for the rsqrt mixes (rsqrtf against torch.rsqrt,
 # relative, elementwise), and the tools' shapes (size, spp, bounces)
@@ -701,8 +717,7 @@ def many_gradients(dev, card: str) -> list:
 
     rng = np.random.default_rng(1)
     results = []
-    for name, size in (("quadrics", 64), ("spheres12", 64),
-                       (f"spheres{MANY}", 32), (f"spheres{MOST}", 32)):
+    for name, size in (("quadrics", 64), ("spheres12", 64)):
         params, static = scene_of(name).pack()
         g = Vec3(*(torch.from_numpy(rng.uniform(0.1, 1.0, (size, size))
                                     .astype(np.float32)).to(dev)
@@ -1783,6 +1798,235 @@ def display_path(dev, card: str) -> list:
     return []
 
 
+def inverse_path(dev, card: str) -> list:
+    """Phase 12: BASELINE config 5 at 1024² x 16 spp x 4 bounces, boundary
+    on.  The target through one K1 launch, then INV_STEPS train steps from
+    inverse_artifact's perturbed scene, each one K1, one K2 and one reduce
+    launch, the loss falling; the step's time, the edge terms' share and
+    the peak memory; the step's interior gradient K2's at the same
+    cotangent bit for bit, K1 and K2 against their plain versions on a row
+    tile; full_boundary_term on the card against the CPU; a central
+    difference of the matte sphere's center.x beside the interior and
+    boundary terms (printed, not held).  Returns the kernels' entries."""
+    from sail_tpu_torch import scenes
+    from sail_tpu_torch.core.vecmath import Vec3
+    from sail_tpu_torch.diff.boundary import (boundary_term,
+                                              full_boundary_term,
+                                              mse_adjoint,
+                                              shadow_boundary_term)
+    from sail_tpu_torch.diff.inverse import finite_difference_grad
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.parallel import render_sharded as rs
+    from sail_tpu_torch.parallel.mesh import make_mesh
+    from sail_tpu_torch.scene.scene import leaf_paths
+    from sail_tpu_torch.tools import grad_localise
+    from sail_tpu_torch.tools import inverse_artifact as ia
+
+    n, spp, bounces = INV_SIZE, INV_SPP, INV_BOUNCES
+    params, static = scenes.cornell_mirror().pack()
+    paths = leaf_paths(static)
+    start = params.clone()
+    for key, v in ia.PERTURBED.items():
+        start[paths.index(key)] = v
+    mesh = make_mesh(1)
+    edge_kw = dict(n_edge_samples=192, n_noise=2, seed=7717,
+                   max_bounces=bounces, n_curve_samples=32)
+
+    def counts():
+        return (mk.render_block.launches, mk.render_grad_block.launches,
+                mk.reduce_grad_rows.launches)
+
+    def zero():
+        mk.render_block.launches = mk.render_grad_block.launches = 0
+        mk.reduce_grad_rows.launches = 0
+
+    # -- the main path: the target, then the train steps ---------------------
+    zero()
+    with torch.no_grad():
+        target = rs.render_sharded(params, static, mesh, n, n, spp,
+                                   max_bounces=bounces)
+    torch.cuda.synchronize()
+    if counts() != (1, 0, 0):
+        raise AssertionError(f"the target made {counts()} K1/K2/reduce "
+                             f"launches, not one K1")
+    p = start.to(dev, copy=True).requires_grad_()
+    opt = torch.optim.Adam([p], lr=INV_LR)
+    step = rs.make_train_step(static, mesh, n, n, spp, opt,
+                              max_bounces=bounces,
+                              trainable=rs.trainable_mask(static,
+                                                          ia.trainable))
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms, per_step = [], [], []
+    for _ in range(INV_STEPS):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(target)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    if any(c != (1, 1, 1) for c in per_step):
+        raise AssertionError(f"the train steps made {per_step} K1/K2/reduce "
+                             f"launches, not one each a step")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and torch.isfinite(p.detach()).all()):
+        raise AssertionError(f"the loss did not fall or is not finite: "
+                             f"{losses}")
+    fitted = p.detach()
+
+    # -- the step's parts at the perturbed scene: the interior gradient, K2
+    # at the same cotangent (bit for bit), the edge terms timed ------------
+    q = start.to(dev)
+    acc = mk.render_block(q, static, n, n, spp, 0, 0, bounces)
+    a = Vec3(*(c.clone().requires_grad_() for c in acc))
+    img = a * (1.0 / spp)
+    se = sum((c - t) ** 2 for c, t in zip(img, target))
+    (torch.sum(se) / (n * n * 3)).backward()
+    g = Vec3(*(c.grad for c in a))
+    k2_runs = [cuda_ms(mk.render_grad_block, q, static, g, n, n, spp, 0, 0,
+                       bounces) for _ in range(TIMED_RUNS)]
+    k2_ms = statistics.median(ms for _, ms in k2_runs)
+    pl = q.clone().requires_grad_()
+    loss0, img0 = rs.sharded_loss_and_image(pl, target, static, mesh, n, n,
+                                            spp, 0, bounces)
+    (interior,) = torch.autograd.grad(loss0, pl)
+    if not all(torch.equal(interior, r) for r, _ in k2_runs):
+        raise AssertionError(
+            f"the step's interior gradient is not K2's at its cotangent: max "
+            f"abs diff {float((interior - k2_runs[0][0]).abs().max()):.3g}")
+    dL = mse_adjoint(img0, target)
+    bnd = full_boundary_term(q, static, dL, n, n, **edge_kw)
+    sil_ms = host_ms(boundary_term, q, static, dL, n, n, runs=3,
+                     **{k: edge_kw[k] for k in ("n_edge_samples", "n_noise",
+                                                "seed", "max_bounces")})[1]
+    pen_ms = host_ms(shadow_boundary_term, q, static, dL, n, n, runs=3,
+                     n_curve_samples=edge_kw["n_curve_samples"],
+                     seed=edge_kw["seed"])[1]
+    step_med = statistics.median(step_ms)
+    # the same step without the edge terms: K1, K2, autograd and Adam
+    pi = start.to(dev, copy=True).requires_grad_()
+    inner = rs.make_train_step(static, mesh, n, n, spp,
+                               torch.optim.Adam([pi], lr=INV_LR),
+                               max_bounces=bounces, boundary=False)
+    interior_ms = host_ms(inner, target, runs=3)[1]
+
+    # -- K2 and K1 against their plain versions on a row tile of the step --
+    t_rows, t_row0 = K2_TILE["cornell_mirror"]
+    gt = Vec3(*(c[t_row0:t_row0 + t_rows].contiguous() for c in g))
+    t_args = (q, static, gt, t_rows, n, spp, 0, 0, bounces)
+    kw = dict(row0=t_row0, image_height=n)
+    t_got = mk.render_grad_block(*t_args, **kw)
+    want, k2_plain_ms = cuda_ms(mk.render_grad_block_plain, *t_args, **kw)
+    tile = (f"cornell_mirror rows {t_row0}-{t_row0 + t_rows - 1} of {n} x "
+            f"{n} spp{spp} b{bounces}")
+    k2_text, grad_err, grad_abs, _ = grad_check(tile, t_got, want, static,
+                                                per_leaf=False)
+    where = grad_localise.check(*t_args, t_row0, n, t_got, want)
+    if where["excess"] > 1:
+        raise AssertionError(f"K2 disagrees with its plain version on a leaf:"
+                             f" {k2_text}, {where}")
+    k1_args = (q, static, t_rows, n, spp, 0, 0, bounces)
+    k1_got = mk.render_block(*k1_args, **kw)
+    k1_want, k1_plain_ms = cuda_ms(mk.render_block_plain, *k1_args, **kw)
+    k1_err, k1_bad = compare(k1_got, k1_want)
+    if k1_bad:
+        raise AssertionError(f"K1 disagrees with its plain version on {tile}:"
+                             f" max_abs {k1_err:.3g}")
+    k1_bit = torch.equal(k1_got.stack(), k1_want.stack())
+    k1_ms = median_ms(mk.render_block, q, static, n, n, spp, 0, 0, bounces)
+    bx, by = mk.grad_limits()["block"]
+    red = reduce_check(dev, (-(-n // bx) * -(-n // by), q.numel()))
+
+    # -- the edge terms on the card against the CPU, on the same inputs ------
+    m = BND_CHECK
+    cpu = make_mesh(1, device="cpu")
+    with torch.no_grad():
+        tgt_m = rs.render_sharded(params, static, cpu, m, m, 4,
+                                  max_bounces=bounces)
+        img_m = rs.render_sharded(start, static, cpu, m, m, 4,
+                                  max_bounces=bounces)
+    dL_m = mse_adjoint(img_m, tgt_m)
+    b_cpu = full_boundary_term(start, static, dL_m, m, m, **edge_kw)
+    b_dev = full_boundary_term(start.to(dev), static,
+                               Vec3(*(c.to(dev) for c in dL_m)), m, m,
+                               **edge_kw).cpu()
+    d = (b_dev - b_cpu).abs()
+    bound_each = BND_RTOL * b_cpu.abs() + BND_ATOL * b_cpu.abs().max()
+    worst = int((d / bound_each.clamp(min=1e-30)).argmax())
+    bnd_text = (f"full_boundary_term at {m}x{m}, card vs CPU: rel Linf "
+                f"{float(d.max() / b_cpu.abs().max()):.3g}, worst leaf "
+                f"{paths[worst]} cpu {float(b_cpu[worst]):.6g} card "
+                f"{float(b_dev[worst]):.6g}, "
+                f"{int((d > bound_each).sum())} of {d.numel()} leaves over "
+                f"{BND_RTOL:g}·|cpu| + {BND_ATOL:g}·max|cpu|")
+    if bool((d > bound_each).any()) or not bool(torch.isfinite(b_dev).all()):
+        raise AssertionError(f"the edge terms differ on the card: {bnd_text}")
+
+    # -- a reading: the central difference of the matte sphere's center.x
+    # beside the interior and boundary terms -------------------------------
+    cx = paths.index(".objects[2].center.x")
+    fd = finite_difference_grad(
+        lambda v: rs.sharded_loss(v, target, static, mesh, n, n, spp, 0,
+                                  bounces), q, cx, eps=FD_EPS)
+    g_int, g_bnd = float(interior[cx]), float(bnd[cx])
+
+    print(f"phase 12 inverse rendering: config 5 cornell_mirror {n}x{n} "
+          f"spp{spp} b{bounces}, boundary on: the target 1 K1 launch; "
+          f"{INV_STEPS} train steps (Adam lr {INV_LR}, inverse_artifact's "
+          f"trainable leaves) each {per_step[0]} K1/K2/reduce launches, "
+          f"loss {' '.join(f'{x:.6g}' for x in losses)}; step "
+          f"{' '.join(f'{x:.1f}' for x in step_ms)} ms (median "
+          f"{step_med:.1f}); without the edge terms {interior_ms:.1f} ms "
+          f"(K1 {k1_ms:.2f}, K2 {k2_ms:.2f}), so the edge terms "
+          f"{100 * (1 - interior_ms / step_med):.1f}% of the step; alone "
+          f"(median of 3) the silhouettes {sil_ms:.1f} ms, the penumbras "
+          f"{pen_ms:.1f} ms; peak memory {peak_gb:.2f} GB "
+          f"| kr 0.45 -> {float(fitted[paths.index('.materials[1].kr')]):.4f}"
+          f", emission 3.0 -> "
+          f"{float(fitted[paths.index('.lights[0].emission.x')]):.4f}, "
+          f"center.x 0.58 -> {float(fitted[cx]):.4f} | the step's interior "
+          f"gradient K2's at its cotangent bit for bit over {TIMED_RUNS} "
+          f"calls | K2 vs plain: {k2_text}; per leaf with the pixel term: "
+          f"worst {where['leaf_name']} = {where['excess']:.3g} of its bound; "
+          f"plain {k2_plain_ms:.1f} ms | K1 vs plain on the tile: max_abs "
+          f"{k1_err:.3g}, {'bit-identical' if k1_bit else 'not bit-identical'}"
+          f", plain {k1_plain_ms:.1f} ms | {bnd_text} | center.x: central "
+          f"difference (eps {FD_EPS:g}) {fd:.6g}, interior {g_int:.6g} + "
+          f"boundary {g_bnd:.6g} = {g_int + g_bnd:.6g} | {card}", flush=True)
+
+    shape = f"cornell_mirror {n}x{n} spp{spp} b{bounces} (config 5)"
+    on = "config 5's target and train steps"
+    k1_b = bound(q, static, n, n, spp, bounces, samples=1, row_step=32)
+    k2_b = bound(q, static, n, n, spp, bounces, grad=True, samples=1,
+                 row_step=32)
+    return [
+        kernel_row("K1 render_block (config 5)",
+                   "sail_tpu_torch/csrc/megakernel.cu + render_block.cuh + "
+                   "path.cuh", "sail_tpu/ops/pallas/megakernel.py:159",
+                   launches[0], k1_err, k1_ms, k1_plain_ms, k1_b, shape,
+                   launches_counted_on=on, plain_shape=tile),
+        kernel_row("K2 render_grad_block (config 5)",
+                   "sail_tpu_torch/csrc/megakernel_grad.cu + render_grad.cuh "
+                   "+ adjoint.cuh", "sail_tpu/ops/pallas/megakernel.py:262",
+                   launches[1], grad_abs, k2_ms, k2_plain_ms, k2_b, shape,
+                   launches_counted_on=on, rel_linf=grad_err,
+                   plain_shape=tile, localised=where,
+                   build=k2_build(q.numel(), static)),
+        kernel_row("K2 reduce_grad_rows (config 5)",
+                   "sail_tpu_torch/csrc/megakernel_grad.cu",
+                   "sail_tpu/ops/pallas/megakernel.py:459", launches[2],
+                   red["max_abs_vs_f64"], red["ms"], red["plain_ms"],
+                   reduce_bound(red), f"{red['shape'][0]} rows x "
+                   f"{red['shape'][1]} params (config 5's step)",
+                   library_ms=red["sum_ms"], call_ms=red["call_ms"],
+                   launches_counted_on=on,
+                   timing="ms, plain_ms, library_ms: per launch, queued "
+                   "behind a sleeping kernel; call_ms: one call between "
+                   "events")]
+
+
 def kernel_vs_plain(dev, card: str) -> list:
     """Phase 2: K1 against its plain version on the card, and the goldens.
     Returns no kernel entry (phase 3 gives K1's)."""
@@ -1964,7 +2208,8 @@ def main() -> int:
                       (4, gradient_path), (5, many_objects),
                       (6, many_gradients), (7, materials_path),
                       (8, profiling_path), (9, k2_phases),
-                      (10, lights_path), (11, display_path)):
+                      (10, lights_path), (11, display_path),
+                      (12, inverse_path)):
         t1 = time.perf_counter()
         kernels += fn(dev, card)
         seconds[phase] = time.perf_counter() - t1

@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.device import resolve
+
 # Purpose tags — keep unique so streams never collide.
 TAG_PIXEL_JITTER = 0
 TAG_BSDF = 1
@@ -97,3 +99,23 @@ class PixelNoise(NamedTuple):
     def uniform3(self, bounce: int, tag: int):
         return pixel_uniform3(stream(self.seed, self.sample, bounce, tag),
                               self.ii, self.jj)
+
+
+def pixel_noise(seed, sample_idx, shape=None, ii=None, jj=None,
+                device=None) -> PixelNoise:
+    """PixelNoise for an (H, W) image block or a flat ray batch of `shape`
+    (grids on `device`: the card unless the caller asks for another), or
+    for the given global pixel coordinates `ii`, `jj`."""
+    if ii is None:
+        device = resolve(device, "pixel_noise")
+        if len(shape) == 2:
+            h, w = shape
+            ii = torch.arange(h, dtype=torch.int32, device=device)[:, None] \
+                .expand(shape)
+            jj = torch.arange(w, dtype=torch.int32, device=device)[None, :] \
+                .expand(shape)
+        else:
+            (n,) = shape
+            ii = torch.arange(n, dtype=torch.int32, device=device)
+            jj = torch.zeros((n,), dtype=torch.int32, device=device)
+    return PixelNoise(seed, sample_idx, ii, jj)

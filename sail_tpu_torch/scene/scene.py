@@ -146,6 +146,31 @@ def unflatten(params: torch.Tensor, static: SceneStatic) -> PackedScene:
     )
 
 
+def leaf_paths(static: SceneStatic) -> tuple:
+    """The key of every float of the flat parameter vector, in its order:
+    the string `jax.tree_util.keystr` gives the same leaf of the JAX
+    package's PackedScene (`.objects[2].center.x`, `.camera.aspect`), by
+    which `trainable_mask` and the tools select leaves."""
+    def row(prefix, cls, widths):
+        for name, w in zip(cls._fields, widths):
+            if w == 1:
+                yield f"{prefix}.{name}"
+            else:
+                yield from (f"{prefix}.{name}.{c}" for c in "xyz")
+
+    check_supported(static)
+    paths = []
+    for section, layouts, cats in (
+            ("objects", geometry.LAYOUTS, static.object_categories),
+            ("materials", material.LAYOUTS, static.material_categories),
+            ("textures", texture.LAYOUTS, static.texture_categories),
+            ("lights", light.LAYOUTS, static.light_categories)):
+        for i, cat in enumerate(cats):
+            paths.extend(row(f".{section}[{i}]", *layouts[cat]))
+    paths.extend(row(".camera", CameraParams, CAMERA_WIDTHS))
+    return tuple(paths)
+
+
 class Camera:
     """Host camera. fovy=55°, aspect=1 default."""
 

@@ -83,7 +83,10 @@ def test_port_imports_no_jax():
             "sail_tpu_torch.render.renderer, sail_tpu_torch.ops.cuda.megakernel, "
             "sail_tpu_torch.render.control, sail_tpu_torch.render.picking, "
             "sail_tpu_torch.render.overlay, sail_tpu_torch.utils.imageio, "
-            "sail_tpu_torch.utils.matrix; "
+            "sail_tpu_torch.utils.matrix, sail_tpu_torch.diff.boundary, "
+            "sail_tpu_torch.diff.inverse, sail_tpu_torch.parallel.mesh, "
+            "sail_tpu_torch.parallel.render_sharded, "
+            "sail_tpu_torch.tools.inverse_artifact; "
             "sail_tpu_torch.Renderer; sail_tpu_torch.Control; "
             "assert not [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sail_tpu.')) or m == 'sail_tpu'], "
