@@ -9,7 +9,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      kinds, the kind without materials also at two blocks per SM, and in
      local arrays of three sizes for two kinds; the lights beyond a
      rectangle area light in the shared and the 352-float builds, for two
-     kinds), the profiling kernels
+     kinds), K2's LIGHTS builds at 1,024 and 4,096 floats
+     (csrc/megakernel_grad_lights.cu, two kinds each), the profiling
+     kernels
      (csrc/profile.cu: K5a, K5b, K5c, K1 with each of four phases
      stripped) and K2's stripped builds (csrc/profile_grad.cu), one nvcc
      each, started together, and reports each kernel's registers, stack,
@@ -117,7 +119,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      against the plain version on a row tile at 256 spp; then
      render_image_fast(lights_and_quadrics, 1024², 64 spp, 5 bounces) ->
      mean(x+y+z) -> backward() through one K1, one K2 and one reduce
-     launch, timed, its gradient K2's bit for bit.
+     launch, timed, its gradient K2's bit for bit; then K2's LIGHTS builds
+     at 1,024 and 4,096 floats on 24 and 80 spheres with a point light
+     (lit_spheres) against their plain version at 16² x 1 spp x 2 bounces
+     (relative L-inf and per leaf with the pixel term), bit-identical on
+     repeat, and the fwd+bwd step of each (24 spheres at 1024² x 64 x 5,
+     80 at 1024² x 1 x 5) through one K1, one K2 and one reduce launch,
+     timed, its gradient K2's bit for bit.
  11. display and runtime: BASELINE config 4 whole, Renderer(1024, 1024,
      seed=0, max_bounces=5) -> update(lights_and_quadrics with its Gaussian
      filter) -> render_spp(256) through one K1 launch -> output, K1 and
@@ -132,6 +140,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
      each event a frame: render_spp(1) + output(gamma) with the selection
      box + png_bytes), timed by part, and pick on the card against the CPU
      on a 16 x 16 grid of pixels.
+ 12. inverse rendering (BASELINE config 5, cornell_mirror perturbed) at
+     1024² x 16 spp x 4 bounces: the target through one K1 launch, five
+     train steps with the edge terms, each one K1, one K2 and one reduce
+     launch, the loss falling, timed; the interior gradient K2's bit for
+     bit, K1 and K2 against their plain versions on a row tile, the edge
+     terms on the card against the CPU at 64², a central difference.
+ 13. the multi-device parallel/ on the one card: (a) render_sharded
+     (cornell_mirror, 1024² x 64 x 5) over make_mesh(8, spp_axis=2) of
+     ranks on cuda:0 through exactly 8 K1 launches, within relative 1e-5
+     of the one-rank image, the 8 x 1 layout bit for bit, timed (median
+     of 3) beside one rank, K1 held against its plain version on a row
+     tile of a rank's block; (b) the ElasticRenderer on those ranks at
+     256² x 16 x 5, chunk 4, half the ranks lost at chunk 1: bit for bit
+     the same render without the loss, the events naming the shrink; (c)
+     config 5's train step at 1024² x 16 x 4 over 2 ranks: without the
+     edge terms (2, 2, 2) K1/K2/reduce launches a step, the gradient
+     within relative 1e-5 and the loss 1e-6 of the one-rank step's; with
+     them 3 steps timed; (d) NCCL at world size 1 (a tcp://127.0.0.1 free
+     port): (a)'s render through the collectives bit for bit, then the
+     process group destroyed.
 Every kernel's bound is computed from this run's inputs: the FP32
 operations the plain version's masks say these paths need
 (sail_tpu_torch/utils/opcount.py) over 67 TFLOP/s, or the bytes over
@@ -190,8 +218,16 @@ K2_TILE = {MANY: (2, 511), MOST: (8, 508), "material_demo": (8, 508),
 # open scene's alive fractions at the main path's size
 CHECK = (64, 4, 3)
 ALIVE_SAMPLES = 4
-# phase 10: config 4's forward at BASELINE's samples per pixel
+# phase 10: config 4's forward at BASELINE's samples per pixel; K2's LIGHTS
+# builds at 1,024 and 4,096 floats on `lit_spheres(n)` (sphere count: the
+# build), held against the plain version at LIT_CHECK (size, spp, bounces:
+# every light sampled, a path that bounces once), and the fwd+bwd step of
+# each at (spp, bounces): the 1,024 build at the main path's shape, the
+# 4,096 one at 1 spp as the 256-sphere step of phase 6
 LIGHTS_SPP = 256
+LIT_SPHERES = {24: 1024, 80: 4096}
+LIT_CHECK = (16, 1, 2)
+LIT_STEP = {24: (SPP, BOUNCES), 80: (1, BOUNCES)}
 # phase 11: the display filters' bound against their run on the CPU (atol =
 # rtol; the same float32 ops on both, exp and pow within an ulp), the
 # checkpoint's halves, and the viewer's frame size (examples/viewer.py)
@@ -213,6 +249,18 @@ INV_LR = 0.025
 BND_CHECK = 64
 BND_RTOL, BND_ATOL = 1e-4, 1e-4
 FD_EPS = 1e-2
+# phase 13: the multi-device parallel/ on one card: config 2 over MESH
+# (ranks, spp axis) at the main path's shape; the elastic renderer on those
+# ranks at ELASTIC (size, spp, bounces, chunk spp), half of them lost at
+# chunk 1; config 5's train step over MESH5 (ranks, spp axis: rows only)
+# at its spec size, MESH_STEPS steps with the edge terms timed; timings the
+# median of MESH_RUNS; the plain K2 on a row tile of a rank's block (rows,
+# first row)
+MESH = (8, 2)
+ELASTIC = (256, 16, 5, 4)
+MESH5 = (2, 1)
+MESH_STEPS = MESH_RUNS = 3
+MESH_K2_TILE = (8, 504)
 # phase 8: K5a's check shape (size, spp, bounces), the stripped builds',
 # K5b/K5c's tolerance for the rsqrt mixes (rsqrtf against torch.rsqrt,
 # relative, elementwise), and the tools' shapes (size, spp, bounces)
@@ -1566,7 +1614,111 @@ def lights_path(dev, card: str) -> list:
                    launches_counted_on=f"the fwd+bwd step on {name}",
                    plain_shape=c4["shape"], tile_ms=c4["tile_ms"],
                    localised=c4["where"],
-                   build=k2_build(params.numel(), static))]
+                   build=k2_build(params.numel(), static))] \
+        + lit_spheres(dev, card)
+
+
+def lit_spheres(dev, card: str) -> list:
+    """Phase 10, K2's LIGHTS builds at 1,024 and 4,096 floats
+    (`csrc/megakernel_grad_lights.cu`) on many spheres and a point light:
+    each against its plain version at LIT_CHECK (relative L-inf and per
+    leaf with the pixel term) and bit-identical on repeat, then
+    render_image_fast at LIT_STEP -> mean(x+y+z) -> backward() through
+    one K1, one K2 and one reduce launch, timed, its gradient K2's bit for
+    bit.  Returns the two builds' JSON entries."""
+    from sail_tpu_torch import scenes
+    from sail_tpu_torch.core.vecmath import Vec3
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.tools import grad_localise
+
+    size, c_spp, c_bounces = LIT_CHECK
+    rows, texts = [], []
+    for n, cap in LIT_SPHERES.items():
+        params, static = scenes.lit_spheres(n).pack()
+        params = params.to(dev)
+        if mk.grad_build(params.numel()) != cap or not \
+                mk.scene_table(static).lights:
+            raise AssertionError(f"lit_spheres({n}) does not take K2's "
+                                 f"LIGHTS {cap} build")
+        gen = torch.Generator().manual_seed(n)
+        g = Vec3(*(torch.rand(size, size, generator=gen).to(dev)
+                   for _ in range(3)))
+        args = (params, static, g, size, size, c_spp, 0, 0, c_bounces)
+        got, check_ms = cuda_ms(mk.render_grad_block, *args)
+        again = mk.render_grad_block(*args)
+        want, plain_ms = cuda_ms(mk.render_grad_block_plain, *args)
+        shape = f"lit_spheres({n}) {size}x{size} spp{c_spp} b{c_bounces}"
+        summary, err, abs_err, _ = grad_check(
+            f"{shape} ({params.numel()} params, K2 build "
+            f"{k2_build(params.numel(), static)})", got, want, static,
+            per_leaf=False)
+        where = grad_localise.check(*args, 0, size, got, want)
+        if where["excess"] > 1 or not torch.equal(got, again):
+            raise AssertionError(f"K2 disagrees with its plain version on a "
+                                 f"leaf or is not repeatable: {summary}, "
+                                 f"{where}")
+
+        spp, bounces = LIT_STEP[n]
+        p = params.clone().requires_grad_()
+
+        def step(seed):
+            img = mk.render_image_fast(p, seed, static, H, W, spp, bounces)
+            loss = (img.x + img.y + img.z).mean()
+            loss.backward()
+            return loss
+
+        mk.render_block.launches = mk.render_grad_block.launches = 0
+        mk.reduce_grad_rows.launches = 0
+        loss = step(0)
+        torch.cuda.synchronize()
+        launches = (mk.render_block.launches, mk.render_grad_block.launches,
+                    mk.reduce_grad_rows.launches)
+        if launches != (1, 1, 1) or not (torch.isfinite(p.grad).all()
+                                         and p.grad.abs().max() > 0):
+            raise AssertionError(f"the step on lit_spheres({n}) made "
+                                 f"{launches} K1/K2/reduce launches, finite "
+                                 f"grad {bool(torch.isfinite(p.grad).all())}")
+        step_grad = p.grad.clone()
+
+        def timed_step():
+            p.grad = None
+            step(1)
+
+        step_ms = host_ms(timed_step, runs=TIMED_RUNS)[1]
+        gs = Vec3(*(torch.full((H, W), 1.0 / (H * W * spp), device=dev),)
+                  * 3)
+        runs = [cuda_ms(mk.render_grad_block, params, static, gs, H, W, spp,
+                        0, 0, bounces) for _ in range(TIMED_RUNS)]
+        k2_ms = statistics.median(ms for _, ms in runs)
+        if not all(torch.equal(step_grad, r) for r, _ in runs):
+            raise AssertionError(f"the step's gradient on lit_spheres({n}) "
+                                 f"is not K2's at the same arguments")
+        k2_bound = bound(params, static, H, W, spp, bounces, grad=True,
+                         samples=1, row_step=32)
+        step_shape = f"lit_spheres({n}) {W}x{H} spp{spp} b{bounces}"
+        texts.append(f"{summary}; per leaf with the pixel term: worst "
+                     f"{where['leaf_name']} = {where['excess']:.3g} of its "
+                     f"bound; bit-identical on repeat; K2 {check_ms:.2f} ms, "
+                     f"plain {plain_ms:.1f} ms | step render_image_fast "
+                     f"{step_shape} -> mean(x+y+z) -> backward: "
+                     f"{launches[0]} K1, {launches[1]} K2, {launches[2]} "
+                     f"reduce launch, loss {float(loss.detach()):.6g}, "
+                     f"fwd+bwd {step_ms:.1f} ms (median of {TIMED_RUNS}), K2 "
+                     f"{k2_ms:.2f} ms, bound {k2_bound['bound_ms']:.3f} ms "
+                     f"({k2_bound['bound_by']}), the step's gradient K2's "
+                     f"bit for bit")
+        rows.append(kernel_row(
+            f"K2 render_grad_block (lit_spheres({n}): the LIGHTS {cap} "
+            f"build)", "sail_tpu_torch/csrc/megakernel_grad_lights.cu + "
+            "render_grad.cuh + adjoint.cuh",
+            "sail_tpu/ops/pallas/megakernel.py:262", launches[1], abs_err,
+            k2_ms, plain_ms, k2_bound, step_shape, rel_linf=err,
+            launches_counted_on=f"the fwd+bwd step on lit_spheres({n})",
+            plain_shape=shape, tile_ms=check_ms, localised=where,
+            build=k2_build(params.numel(), static), step_ms=step_ms))
+    print("phase 10 K2's LIGHTS builds: " + " || ".join(texts)
+          + f" | {card}", flush=True)
+    return rows
 
 
 def host_ms(fn, *args, runs: int = 1, **kw):
@@ -2027,6 +2179,280 @@ def inverse_path(dev, card: str) -> list:
                    "events")]
 
 
+def multi_device_path(dev, card: str) -> list:
+    """Phase 13: the multi-device parallel/ on the one card.  (a) config 2
+    at 1024² x 64 x 5 over make_mesh(8, spp_axis=2) of ranks on the card,
+    through exactly 8 K1 launches, within relative 1e-5 of the one-rank
+    image, the 8 x 1 layout bit for bit, timed beside one rank; (b) the
+    ElasticRenderer on those ranks, half of them lost at chunk 1, bit for
+    bit the same render without the loss; (c) config 5's train step over 2
+    ranks: without the edge terms (2, 2, 2) K1/K2/reduce launches, its
+    gradient and loss against the one-rank step's, then MESH_STEPS steps
+    with them, timed; (d) NCCL at world size 1: (a)'s render through the
+    collectives bit for bit.  Returns the kernels' JSON entries."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sail_tpu_torch import scenes
+    from sail_tpu_torch.core.vecmath import Vec3
+    from sail_tpu_torch.diff.boundary import mse_adjoint
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.parallel import render_sharded as rs
+    from sail_tpu_torch.parallel.elastic import DeviceFailure, ElasticRenderer
+    from sail_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from sail_tpu_torch.scene.scene import leaf_paths
+    from sail_tpu_torch.tools import inverse_artifact as ia
+
+    def counts():
+        return (mk.render_block.launches, mk.render_grad_block.launches,
+                mk.reduce_grad_rows.launches)
+
+    def zero():
+        mk.render_block.launches = mk.render_grad_block.launches = 0
+        mk.reduce_grad_rows.launches = 0
+
+    def median3(fn, *args, **kw):
+        cuda_ms(fn, *args, **kw)
+        return statistics.median(cuda_ms(fn, *args, **kw)[1]
+                                 for _ in range(MESH_RUNS))
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    n_ranks, spp_axis = MESH
+    ranks = [dev] * n_ranks
+    params, static = scenes.cornell_mirror().pack()
+    params = params.to(dev)
+    mesh = make_mesh(n_ranks, spp_axis, devices=ranks)
+    rows_mesh = make_mesh(n_ranks, 1, devices=ranks)
+    one = make_mesh(1, device=dev)
+    full = (params, static, mesh, H, W, SPP)
+    kw = dict(max_bounces=BOUNCES)
+
+    # -- (a) config 2 over 8 ranks: the main path ----------------------------
+    zero()
+    img8 = rs.render_sharded(*full, **kw).stack()
+    torch.cuda.synchronize()
+    k1_launches = counts()
+    if k1_launches != (n_ranks, 0, 0):
+        raise AssertionError(f"the {n_ranks}-rank render made {k1_launches} "
+                             f"K1/K2/reduce launches, not {n_ranks} K1")
+    img1 = rs.render_sharded(params, static, one, H, W, SPP, **kw).stack()
+    img_rows = rs.render_sharded(params, static, rows_mesh, H, W, SPP,
+                                 **kw).stack()
+    err8 = rel(img8, img1)
+    if err8 > 1e-5 or not torch.equal(img_rows, img1) \
+            or not bool(torch.isfinite(img8).all()):
+        raise AssertionError(f"the {n_ranks}-rank image is {err8:.3g} off "
+                             f"the one-rank image, or the rows-only layout "
+                             f"is not it bit for bit")
+    ms8 = median3(rs.render_sharded, *full, **kw)
+    ms_rows = median3(rs.render_sharded, params, static, rows_mesh, H, W,
+                      SPP, **kw)
+    ms1 = median3(rs.render_sharded, params, static, one, H, W, SPP, **kw)
+    rows, spp_local = H // mesh.n_tile, SPP // mesh.n_spp
+
+    def k1_blocks():
+        for di, _ in mesh.local_ranks:
+            ti, si = divmod(di, mesh.n_spp)
+            mk.render_block(params, static, rows, W, spp_local, 0,
+                            si * spp_local, BOUNCES, row0=ti * rows,
+                            image_height=H)
+
+    k1_ms = median3(k1_blocks)
+    k1_one_ms = median3(mk.render_block, params, static, H, W, SPP, 0, 0,
+                        BOUNCES)
+    k1_text, k1_err, _, k1_plain_ms, k1_shape = k1_tile(
+        "cornell_mirror", params, static, spp_local)
+
+    # -- (b) the elastic renderer, half the ranks lost at chunk 1 ------------
+    size, e_spp, e_bounces, chunk = ELASTIC
+    dead = {r.id for r in mesh.ranks[n_ranks // 2:]}
+    tripped = []
+
+    def fault_hook(k):
+        if k == 1 and not tripped:
+            tripped.append(True)
+            raise DeviceFailure("injected: half the ranks lost")
+
+    plain_er = ElasticRenderer(params, static, size, size, e_bounces,
+                               devices=ranks)
+    e_ref = plain_er.render(e_spp, 0, chunk).stack()
+    er = ElasticRenderer(params, static, size, size, e_bounces, devices=ranks,
+                         fault_hook=fault_hook, faulty=lambda r: r.id in dead)
+    e_img, e_ms = host_ms(er.render, e_spp, 0, chunk)
+    e_img = e_img.stack()
+    e_one = rs.render_sharded(params, static, one, size, size, e_spp,
+                              max_bounces=e_bounces).stack()
+    if not (torch.equal(e_img, e_ref) and plain_er.events == []
+            and any(e["event"] == "mesh_shrink" for e in er.events)
+            and len(er.devices) == n_ranks // 2
+            and rel(e_img, e_one) <= 1e-5):
+        raise AssertionError(f"the elastic render after the loss is not the "
+                             f"render without it bit for bit, or its events "
+                             f"{er.events} name no shrink to "
+                             f"{n_ranks // 2} ranks")
+
+    # -- (c) config 5's train step over 2 ranks ------------------------------
+    n, spp5, b5 = INV_SIZE, INV_SPP, INV_BOUNCES
+    paths = leaf_paths(static)
+    start = params.clone()
+    for key, v in ia.PERTURBED.items():
+        start[paths.index(key)] = v
+    two = make_mesh(*MESH5, devices=[dev] * MESH5[0])
+    with torch.no_grad():
+        target = rs.render_sharded(params, static, one, n, n, spp5,
+                                   max_bounces=b5)
+    grads, losses, per_step, steps = {}, {}, {}, {}
+    for name, m in (("one", one), ("two", two)):
+        p = start.clone().requires_grad_()
+        steps[name] = rs.make_train_step(static, m, n, n, spp5,
+                                         torch.optim.Adam([p], lr=INV_LR),
+                                         max_bounces=b5, boundary=False)
+        zero()
+        losses[name] = float(steps[name](target))
+        torch.cuda.synchronize()
+        per_step[name] = counts()
+        grads[name] = p.grad.clone()
+    g_err = rel(grads["two"], grads["one"])
+    l_err = abs(losses["two"] - losses["one"]) / abs(losses["one"])
+    if per_step["two"] != (2, 2, 2) or g_err > 1e-5 or l_err > 1e-6:
+        raise AssertionError(f"config 5's 2-rank step made {per_step['two']} "
+                             f"K1/K2/reduce launches, its gradient is "
+                             f"{g_err:.3g} and its loss {l_err:.3g} off the "
+                             f"one-rank step's")
+    step2_ms = host_ms(steps["two"], target, runs=MESH_RUNS)[1]
+    step1_ms = host_ms(steps["one"], target, runs=MESH_RUNS)[1]
+    pb = start.clone().requires_grad_()
+    step_b = rs.make_train_step(static, two, n, n, spp5,
+                                torch.optim.Adam([pb], lr=INV_LR),
+                                max_bounces=b5,
+                                trainable=rs.trainable_mask(static,
+                                                            ia.trainable))
+    b_losses, b_ms = [], []
+    for _ in range(MESH_STEPS):
+        loss, ms = host_ms(step_b, target)
+        b_losses.append(float(loss))
+        b_ms.append(ms)
+    if not (all(np.isfinite(b_losses)) and torch.isfinite(pb).all()):
+        raise AssertionError(f"config 5's 2-rank steps with the edge terms: "
+                             f"losses {b_losses}")
+    # the step's kernels per rank: K2 on each rank's rows at the step's
+    # cotangent, the reduce of a rank's rows, the plain K2 on a row tile
+    with torch.no_grad():
+        img5 = rs.render_sharded(start, static, one, n, n, spp5,
+                                 max_bounces=b5)
+    adj = torch.stack(mse_adjoint(img5, target)) * (1.0 / spp5)
+    rows5 = n // two.n_tile
+
+    def k2_ranks():
+        for di, _ in two.local_ranks:
+            g = Vec3(*adj[:, di * rows5:(di + 1) * rows5].contiguous())
+            mk.render_grad_block(start, static, g, rows5, n, spp5, 0, 0, b5,
+                                 row0=di * rows5, image_height=n)
+
+    k2_ms = median3(k2_ranks)
+    k2_one_ms = median3(mk.render_grad_block, start, static, Vec3(*adj), n,
+                        n, spp5, 0, 0, b5)
+    t_rows, t_row0 = MESH_K2_TILE
+    gt = Vec3(*adj[:, t_row0:t_row0 + t_rows].contiguous())
+    t_args = (start, static, gt, t_rows, n, spp5, 0, 0, b5)
+    t_kw = dict(row0=t_row0, image_height=n)
+    t_got = mk.render_grad_block(*t_args, **t_kw)
+    t_want, k2_plain_ms = cuda_ms(mk.render_grad_block_plain, *t_args, **t_kw)
+    k2_shape = (f"cornell_mirror rows {t_row0}-{t_row0 + t_rows - 1} of {n} "
+                f"x {n} spp{spp5} b{b5}")
+    k2_text, k2_err, k2_abs, _ = grad_check(k2_shape, t_got, t_want, static)
+    bx, by = mk.grad_limits()["block"]
+    red = reduce_check(dev, (-(-rows5 // by) * -(-n // bx), start.numel()))
+
+    # -- (d) NCCL at world size 1: (a)'s render through the collectives ------
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl",
+                           timeout=120)
+    try:
+        init_s = time.perf_counter() - t0
+        if not (mesh.gathers and dist.get_backend() == "nccl"):
+            raise AssertionError("the mesh does not gather at world size 1")
+        zero()
+        img_nccl = rs.render_sharded(*full, **kw).stack()
+        torch.cuda.synchronize()
+        nccl_launches = counts()
+        if nccl_launches != (n_ranks, 0, 0) or not torch.equal(img_nccl,
+                                                               img8):
+            raise AssertionError(f"the render through NCCL made "
+                                 f"{nccl_launches} launches or is not the "
+                                 f"in-process image bit for bit")
+        nccl_ms = median3(rs.render_sharded, *full, **kw)
+    finally:
+        dist.destroy_process_group()
+
+    print(f"phase 13 multi-device: (a) render_sharded cornell_mirror {W}x{H} "
+          f"spp{SPP} b{BOUNCES} over {n_ranks} ranks on {dev} "
+          f"({mesh.shape}): {k1_launches[0]} K1 launches, relative L-inf "
+          f"{err8:.3g} against one rank, the {n_ranks} x 1 layout "
+          f"bit-identical; {ms8:.2f} ms ({mesh.shape}), {ms_rows:.2f} ms "
+          f"({rows_mesh.shape}), one rank {ms1:.2f} ms (median of "
+          f"{MESH_RUNS}); K1 over the ranks {k1_ms:.2f} ms "
+          f"({k1_ms / n_ranks:.3f} a rank), one launch {k1_one_ms:.2f} ms | "
+          f"K1 vs plain on {k1_text} | (b) ElasticRenderer {size}x{size} "
+          f"spp{e_spp} b{e_bounces} chunk {chunk}, ranks "
+          f"{sorted(dead)} lost at chunk 1: events {er.events}, bit-identical"
+          f" to the render without the loss, {rel(e_img, e_one):.3g} off one "
+          f"rank, {e_ms:.1f} ms | (c) config 5 {n}x{n} spp{spp5} b{b5} over "
+          f"{two.shape}: without the edge terms {per_step['two']} "
+          f"K1/K2/reduce launches a step, gradient relative L-inf "
+          f"{g_err:.3g} and loss {l_err:.3g} against one rank, step "
+          f"{step2_ms:.1f} ms (one rank {step1_ms:.1f} ms); K2 over the "
+          f"ranks {k2_ms:.2f} ms, one launch {k2_one_ms:.2f} ms; K2 vs plain:"
+          f" {k2_text}, plain {k2_plain_ms:.1f} ms; with the edge terms "
+          f"losses {' '.join(f'{x:.6g}' for x in b_losses)}, steps "
+          f"{' '.join(f'{x:.1f}' for x in b_ms)} ms | (d) NCCL world size 1 "
+          f"(init {init_s:.2f} s): {nccl_launches[0]} K1 launches, the image "
+          f"bit-identical to (a)'s, {nccl_ms:.2f} ms | {card}", flush=True)
+
+    on_a = f"render_sharded over {n_ranks} ranks (phase 13 a)"
+    on_c = f"config 5's step over {MESH5[0]} ranks (phase 13 c)"
+    return [
+        kernel_row(f"K1 render_block (config 2 over {n_ranks} ranks on one "
+                   f"card)", "sail_tpu_torch/csrc/megakernel.cu + "
+                   "render_block.cuh + path.cuh",
+                   "sail_tpu/ops/pallas/megakernel.py:159", k1_launches[0],
+                   k1_err, k1_ms, k1_plain_ms,
+                   bound(params, static, H, W, SPP, BOUNCES),
+                   f"cornell_mirror {W}x{H} spp{SPP} b{BOUNCES} as "
+                   f"{n_ranks} blocks of {rows} rows x {spp_local} spp",
+                   launches_counted_on=on_a, plain_shape=k1_shape,
+                   one_rank_ms=k1_one_ms, per_rank_ms=k1_ms / n_ranks,
+                   render_ms=ms8, one_rank_render_ms=ms1),
+        kernel_row(f"K2 render_grad_block (config 5 over {MESH5[0]} ranks)",
+                   "sail_tpu_torch/csrc/megakernel_grad.cu + render_grad.cuh "
+                   "+ adjoint.cuh", "sail_tpu/ops/pallas/megakernel.py:262",
+                   per_step["two"][1], k2_abs, k2_ms, k2_plain_ms,
+                   bound(start, static, n, n, spp5, b5, grad=True, samples=1,
+                         row_step=32),
+                   f"cornell_mirror {n}x{n} spp{spp5} b{b5} as {MESH5[0]} "
+                   f"blocks of {rows5} rows", launches_counted_on=on_c,
+                   rel_linf=k2_err, plain_shape=k2_shape,
+                   one_rank_ms=k2_one_ms, per_rank_ms=k2_ms / MESH5[0],
+                   build=k2_build(start.numel(), static)),
+        kernel_row(f"K2 reduce_grad_rows (config 5 over {MESH5[0]} ranks)",
+                   "sail_tpu_torch/csrc/megakernel_grad.cu",
+                   "sail_tpu/ops/pallas/megakernel.py:459",
+                   per_step["two"][2], red["max_abs_vs_f64"], red["ms"],
+                   red["plain_ms"], reduce_bound(red),
+                   f"{red['shape'][0]} rows x {red['shape'][1]} params (a "
+                   f"rank's rows)", library_ms=red["sum_ms"],
+                   call_ms=red["call_ms"], launches_counted_on=on_c,
+                   timing="ms, plain_ms, library_ms: per launch, queued "
+                   "behind a sleeping kernel; call_ms: one call between "
+                   "events")]
+
+
 def kernel_vs_plain(dev, card: str) -> list:
     """Phase 2: K1 against its plain version on the card, and the goldens.
     Returns no kernel entry (phase 3 gives K1's)."""
@@ -2160,7 +2586,8 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()
     nvcc = next((ln for ln in nvcc if "release" in ln), nvcc[-1])
     t0 = time.perf_counter()
-    sources = ("megakernel", "megakernel_grad", "profile", "profile_grad")
+    sources = ("megakernel", "megakernel_grad", "megakernel_grad_lights",
+               "profile", "profile_grad")
     build.build(*sources)   # one nvcc each, started together
     build_s = time.perf_counter() - t0
     usage = {f"{k} ({src})": v for src in sources
@@ -2179,8 +2606,11 @@ def main() -> int:
                      for m in flags),
                    *(f"render_grad_kernel<{cap}, true, {m}, 0, 1, true> "
                      f"(megakernel_grad)"
-                     for cap in (mk.SHARED_GRAD, mk.LIGHTS_MAX_CAP)
+                     for cap in (mk.SHARED_GRAD, mk.GRAD_CAPS[0])
                      for m in flags),
+                   *(f"render_grad_kernel<{cap}, true, {m}, 0, 1, true> "
+                     f"(megakernel_grad_lights)"
+                     for cap in mk.LIGHTS_CAPS for m in flags),
                    *(f"isect_only_kernel<{a}> (profile)" for a in flags),
                    "alu_peak_kernel<0> (profile)",
                    "alu_peak_kernel<1> (profile)",
@@ -2209,7 +2639,7 @@ def main() -> int:
                       (6, many_gradients), (7, materials_path),
                       (8, profiling_path), (9, k2_phases),
                       (10, lights_path), (11, display_path),
-                      (12, inverse_path)):
+                      (12, inverse_path), (13, multi_device_path)):
         t1 = time.perf_counter()
         kernels += fn(dev, card)
         seconds[phase] = time.perf_counter() - t1

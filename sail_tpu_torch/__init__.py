@@ -9,8 +9,11 @@ picking, dragging and the orbit `Control` — and the gradient path
 category, in any number, with every material (matte, mirror, metal, glass)
 and texture category and every light (area lights over any shape but a
 Cornell box, point and spot lights); on a CUDA device `render_spp` is one
-launch of the hand-written K1 megakernel (`csrc/megakernel.cu`).  Its
-top-level names are the JAX package's but `ElasticRenderer`.
+launch of the hand-written K1 megakernel (`csrc/megakernel.cu`).  A
+render or a train step splits over a mesh of ranks (`parallel/`: several
+ranks on one card, or processes joined by torch.distributed), and
+`ElasticRenderer` finishes a render on the ranks left after a failure.
+Its top-level names are the JAX package's.
 """
 
 from . import constants
@@ -41,7 +44,7 @@ __all__ = [
     "Texture", "UniformColor", "Checkerboard", "Checkerboard2", "Bilerp",
     "Mix", "ScaleT", "Scale", "UV", "Color",
     "Matrix", "Vector",
-    "Renderer", "Control",
+    "Renderer", "Control", "ElasticRenderer",
 ]
 
 
@@ -54,4 +57,7 @@ def __getattr__(name):
     if name == "Control":
         from .render.control import Control
         return Control
+    if name == "ElasticRenderer":
+        from .parallel.elastic import ElasticRenderer
+        return ElasticRenderer
     raise AttributeError(f"module 'sail_tpu_torch' has no attribute {name!r}")

@@ -47,9 +47,12 @@
 //   without the cull, which changes no value.  A scene with a light other
 //   than AREA over a RECTANGLE (config 4: a point and a spot light; an area
 //   light over any other shape) takes a LIGHTS build (path.cuh
-//   light_sample_other, adjoint.cuh light_adj), made for the shared build
-//   and the smallest local one, with and without MATS; no other build holds
-//   that code, so the builds configs 1-3 take are what they were.
+//   light_sample_other, adjoint.cuh light_adj), made for every build but
+//   configs 1-2's, with and without MATS: the shared and the 352-float
+//   builds here, the 1,024- and 4,096-float ones in
+//   megakernel_grad_lights.cu, a library of its own that compiles beside
+//   this one; no other build holds that code, so the builds configs 1-3
+//   take are what they were.
 //
 // The TPU kernel carries one (1, n) sum across its sequential grid; Hopper's
 // blocks run in parallel and in no order, so the sum is two passes with a
@@ -76,8 +79,10 @@ namespace {
 constexpr int CAPS[] = {352, 1024, 4096};
 constexpr int N_CAPS = sizeof(CAPS) / sizeof(CAPS[0]);
 // The builds with the lights beyond AREA over a RECTANGLE (LIGHTS): the
-// shared one and the smallest local one, so up to 352 parameters.
-constexpr int LIGHTS_MAX_CAP = CAPS[0];
+// shared one and CAPS[0] here, CAPS[1] and CAPS[2] in
+// megakernel_grad_lights.cu (its entry sail_render_grad_lights), so up to
+// the largest cap.
+constexpr int LIGHTS_MAX_CAP = CAPS[N_CAPS - 1];
 
 // out[p] = sum over r of rows[r][p], in a fixed order: for each parameter,
 // 256 partials, partial t the rows t, t + 256, ... added in row order to 0,
@@ -216,8 +221,9 @@ extern "C" int sail_grad_min_blocks(int n_params, int cap, int all_shapes, int m
 // the wrapper picked: SHARED_GRAD (0, n_params up to SHARED_MAX_PARAMS) or
 // one of CAPS, at least n_params; `all_shapes` and `materials` as in
 // sail_render_block; `lights`: a light other than AREA over a RECTANGLE
-// (with all_shapes), built for SHARED_GRAD and CAPS[0] (LIGHTS_MAX_CAP).  The
-// launch bound follows from them (grad_min_blocks).
+// (with all_shapes), built here for SHARED_GRAD and CAPS[0]; a larger cap
+// with `lights` returns cudaErrorInvalidValue (sail_render_grad_lights takes
+// it).  The launch bound follows from them (grad_min_blocks).
 // Each launches on `stream`, does not synchronise, and returns the launch's
 // cudaError_t.
 extern "C" int sail_render_grad_block(const float* params, const int* table, int n_obj,
@@ -239,8 +245,10 @@ extern "C" int sail_render_grad_block(const float* params, const int* table, int
     if (cap == SHARED_GRAD)
       return materials ? SAIL_LAUNCH(SHARED_GRAD, true, true, 1, true)
                        : SAIL_LAUNCH(SHARED_GRAD, true, false, 1, true);
-    return materials ? SAIL_LAUNCH(CAPS[0], true, true, 1, true)
-                     : SAIL_LAUNCH(CAPS[0], true, false, 1, true);
+    if (cap == CAPS[0])
+      return materials ? SAIL_LAUNCH(CAPS[0], true, true, 1, true)
+                       : SAIL_LAUNCH(CAPS[0], true, false, 1, true);
+    return (int)cudaErrorInvalidValue;
   }
   if (grad_min_blocks(cap, n_params, all_shapes != 0, materials != 0) == 2)
     return SAIL_LAUNCH(SHARED_GRAD, false, false, 2);

@@ -6,8 +6,10 @@ its many-object form included (the batched winner-fold, whose order the
 scene table's rows follow, and the opt-in cluster cull, `cull=True`); its
 kernel is `csrc/megakernel.cu`.  K2 replaces `render_grad_block_pallas`
 (`megakernel.py:262`); its kernels are `csrc/megakernel_grad.cu` (the
-per-pixel path adjoint, one row of block partials per thread block) and a
-second small pass that sums the rows in a fixed order.  Both are CUDA C++
+per-pixel path adjoint, one row of block partials per thread block; with
+`csrc/megakernel_grad_lights.cu`, a library of its own, for the lit
+scenes of more than 352 parameters) and a second small pass that sums the
+rows in a fixed order.  Both are CUDA C++
 for sm_90a (the sources' headers say what bounds them and how the design
 answers), built by `utils/build.py` and bound through plain C entry points
 with ctypes.
@@ -24,8 +26,9 @@ shared memory up to SHARED_GRAD_MAX_PARAMS parameters, else in a local
 array of GRAD_CAPS floats, `grad_build`), for MATS, for configs 1-2's
 kind at two blocks per SM (the C entry's choice, `csrc/grad_build.h`;
 `grad_launch_bound` reports it) and, for a light other than AREA over a
-RECTANGLE, with LIGHTS up to LIGHTS_MAX_CAP parameters; the table says
-which kind a scene is.
+RECTANGLE, with LIGHTS at every CAP (those of LIGHTS_CAPS in
+`csrc/megakernel_grad_lights.cu`); the table says which kind a scene
+is.
 
 `render_image_fast` / `render_tile_fast` are the JAX package's
 `custom_vjp`s (`megakernel.py:497-569`) as `torch.autograd.Function`s:
@@ -49,6 +52,7 @@ from ...utils import build
 
 _SOURCE = "megakernel"
 _GRAD_SOURCE = "megakernel_grad"
+_GRAD_LIGHTS_SOURCE = "megakernel_grad_lights"
 
 
 def _int32(v) -> int:
@@ -306,9 +310,11 @@ GRAD_BLOCK = (16, 16)   # K2's thread block: columns, rows
 SHARED_GRAD = 0
 SHARED_GRAD_MAX_PARAMS = 220
 # The largest K2 build with a light other than AREA over a RECTANGLE
-# (`megakernel_grad.cu` LIGHTS_MAX_CAP): such scenes take up to 352
-# parameters.
-LIGHTS_MAX_CAP = 352
+# (`megakernel_grad.cu` LIGHTS_MAX_CAP): such scenes take as many parameters
+# as any other.  `megakernel_grad.cu` builds LIGHTS for the shared array
+# and GRAD_CAPS[0]; `megakernel_grad_lights.cu` (LIGHTS_CAPS) for the rest.
+LIGHTS_MAX_CAP = 4096
+LIGHTS_CAPS = GRAD_CAPS[1:]
 
 
 def grad_cap(n_params: int, caps=GRAD_CAPS) -> int:
@@ -346,6 +352,22 @@ def _grad_entries():
             _bind(_GRAD_SOURCE, "sail_reduce_grad_rows", REDUCE_ARGTYPES),
             tuple(limits[:3]),
             _bind(_GRAD_SOURCE, "sail_grad_min_blocks", MIN_BLOCKS_ARGTYPES))
+
+
+@functools.lru_cache(maxsize=None)
+def _grad_lights_entry():
+    """The C entry of K2's LIGHTS builds above GRAD_CAPS[0]
+    (`csrc/megakernel_grad_lights.cu`), built at the first lit scene that
+    needs it."""
+    lib = build.load(_GRAD_LIGHTS_SOURCE)
+    caps = (ctypes.c_int * 8)()
+    lib.sail_grad_lights_caps(caps)
+    built = tuple(caps[1:1 + caps[0]])
+    if built != LIGHTS_CAPS:
+        raise RuntimeError(f"K2's LIGHTS library was built for the local "
+                           f"arrays {built}, the wrapper expects "
+                           f"{LIGHTS_CAPS}")
+    return _bind(_GRAD_LIGHTS_SOURCE, "sail_render_grad_lights", K2_ARGTYPES)
 
 
 def grad_limits() -> dict:
@@ -465,11 +487,6 @@ def render_grad_rows(params: torch.Tensor, static: SceneStatic, g: Vec3,
     off = _check_grad_block(params, static, g, height, width, spp,
                             max_bounces, row0, image_height)
     table = scene_table(static)
-    if table.lights and grad_build(off.size) > LIGHTS_MAX_CAP:
-        raise NotImplementedError(
-            f"K2 takes a scene with a point or spot light, or an area light "
-            f"over a shape other than a rectangle, up to {LIGHTS_MAX_CAP} "
-            f"parameters; this one has {off.size} (ROADMAP.md queue 2b)")
     if not params.is_cuda:
         raise TypeError("render_grad_rows runs K2 on the card: params must "
                         "be a CUDA tensor")
@@ -477,13 +494,16 @@ def render_grad_rows(params: torch.Tensor, static: SceneStatic, g: Vec3,
     if max_bounces > max_bounces_cap:
         raise ValueError(f"K2 takes at most {max_bounces_cap} bounces; got "
                          f"{max_bounces}")
+    cap = grad_build(off.size)
+    if table.lights and cap in LIGHTS_CAPS:
+        grad_fn = _grad_lights_entry()
     dev = params.device
     n_blocks = -(-width // bx) * -(-height // by)
     rows = torch.empty((n_blocks, off.size), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = grad_fn(
             params.data_ptr(), _device_table(static, dev).data_ptr(),
-            *_counts(static), off.camera, off.size, grad_build(off.size),
+            *_counts(static), off.camera, off.size, cap,
             int(table.all_shapes), int(table.materials), int(table.lights),
             g.x.data_ptr(),
             g.y.data_ptr(), g.z.data_ptr(), rows.data_ptr(), height, width,

@@ -182,21 +182,34 @@ def open_lights() -> Scene:
     return scene
 
 
-def many_spheres(n_spheres: int) -> Scene:
+def many_spheres(n_spheres: int, lib=None) -> Scene:
     """The many-object scene of `tools/many_object_bench.py`: a Cornell box,
     a grid of n small matte spheres (spatially localized, so the cull has
-    something to cull) and a ceiling light.  13 n + 47 parameters."""
-    scene = Scene()
-    scene.add(Camera((0.0, 0.0, -2.5), (0.0, 0.0, 0.0)))
-    scene.add(Cornellbox((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)))
+    something to cull) and a ceiling light.  13 n + 47 parameters.  `lib`
+    as in `area_lights`."""
+    m = sys.modules[__package__] if lib is None else lib
+    scene = m.Scene()
+    scene.add(m.Camera((0.0, 0.0, -2.5), (0.0, 0.0, 0.0)))
+    scene.add(m.Cornellbox((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)))
     side = max(1, int(math.ceil(math.sqrt(n_spheres))))
     for k in range(n_spheres):
         x = -0.85 + 1.7 * (k % side) / max(1, side - 1)
         y = -0.85 + 1.7 * (k // side) / max(1, side - 1)
-        scene.add(Sphere((x, y, 0.3), 0.75 / side, Matte(kd=0.8)))
-    scene.add(AreaLight(
-        Rectangle((-0.3, 0.98, -0.3), (0.3, 0.98, 0.3), Matte()),
+        scene.add(m.Sphere((x, y, 0.3), 0.75 / side, m.Matte(kd=0.8)))
+    scene.add(m.AreaLight(
+        m.Rectangle((-0.3, 0.98, -0.3), (0.3, 0.98, 0.3), m.Matte()),
         (5.0, 5.0, 5.0)))
+    return scene
+
+
+def lit_spheres(n_spheres: int, lib=None) -> Scene:
+    """Not a benchmark config: `many_spheres(n)` plus a point light, so
+    that K2 takes its LIGHTS build at the local array that holds 13 n + 54
+    parameters (24 spheres: 1,024 floats; 80: 4,096).  `lib` as in
+    `area_lights`."""
+    m = sys.modules[__package__] if lib is None else lib
+    scene = many_spheres(n_spheres, lib)
+    scene.add(m.PointLight((0.0, 0.9, 0.0), (1.0, 1.0, 1.0)))
     return scene
 
 

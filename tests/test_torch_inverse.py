@@ -135,11 +135,14 @@ def test_trainable_mask_matches_jax(predicate):
 
 
 def test_make_mesh_is_one_rank(monkeypatch):
+    """`device=` is the one-rank mesh: more ranks, or an spp axis of more
+    than one, need `devices=` (tests/test_torch_sharding.py)."""
     mesh = make_mesh(1, device="cpu")
     assert mesh.shape == {"tile": 1, "spp": 1} and mesh.size == 1
     assert make_mesh(device="cpu") == mesh
+    assert mesh.device == torch.device("cpu")
     for n, spp_axis in ((2, None), (4, 2), (1, 2)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        with pytest.raises(ValueError):
             make_mesh(n, spp_axis, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

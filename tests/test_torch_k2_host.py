@@ -26,10 +26,11 @@ from sail_tpu_torch.utils import build
 
 HOST_DIR = os.path.join(build.CSRC_DIR, "host")
 SIZE, SPP, BOUNCES = 8, 2, 3
-# configs 2, 3 and 4 (its point and spot lights) and an area light over
-# each of seven shapes (the LIGHTS adjoints)
+# configs 2, 3 and 4 (its point and spot lights), an area light over
+# each of seven shapes (the LIGHTS adjoints), and 24 spheres with a point
+# light (366 parameters: the LIGHTS code K2's 1,024-float build runs)
 SCENES = ("cornell_mirror", "material_demo", "lights_and_quadrics",
-          "area_lights")
+          "area_lights", "lit_spheres24")
 # Against the plain version: relative L-inf (of the largest leaf) with
 # torch.sqrt made correctly rounded.  torch's CPU float32 sqrt is 1 ulp off
 # sqrtf on some inputs, which flips clip ties and moves a leaf by ~1e-3 of
@@ -65,7 +66,7 @@ def host_k2(host_lib):
 
 
 def _inputs(name):
-    params, static = getattr(scenes, name)().pack()
+    params, static = _pack(name)
     rng = np.random.default_rng(0)
     g = Vec3(*(torch.from_numpy(rng.uniform(0.1, 1.0, (SIZE, SIZE))
                                 .astype(np.float32)) for _ in range(3)))
@@ -128,7 +129,10 @@ def test_host_entry_matches_its_bindings():
 
 
 def _pack(name):
-    """(params, static) of a scene or of `spheres<n>`."""
+    """(params, static) of a scene, of `spheres<n>` or of
+    `lit_spheres<n>`."""
+    if name.startswith("lit_spheres"):
+        return scenes.lit_spheres(int(name[len("lit_spheres"):])).pack()
     if name.startswith("spheres"):
         return scenes.many_spheres(int(name[len("spheres"):])).pack()
     return getattr(scenes, name)().pack()

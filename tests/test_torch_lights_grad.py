@@ -175,25 +175,65 @@ def test_paraboloid_tie_gives_jax_gradient(jax_rsqrt_as_port):
                                atol=1e-5 * np.abs(want).max())
 
 
-def test_k2_takes_lights_up_to_its_largest_lights_build():
-    """K2's builds with the lights beyond a rectangle area light go up to
-    LIGHTS_MAX_CAP (352) parameters: a larger scene with a point light is
-    refused before any launch, naming the limit, while its plain gradient
-    (a CPU tensor) and the scenes of this file stay inside it."""
-    import sail_tpu_torch as sail
+def test_k2_takes_lit_scenes_up_to_its_largest_build(jax_rsqrt_as_port):
+    """K2 has LIGHTS builds (a light beyond a rectangle area light) at every
+    gradient array: 24 spheres and a point light (366 parameters) take the
+    1,024-float one and 80 (1,094) the 4,096-float one, both in
+    `megakernel_grad_lights.cu`.  `render_grad_rows` runs K2 alone, so a
+    CPU tensor is refused for want of a card, not for its size; the plain
+    gradient of the 24-sphere scene (the version the chip holds those
+    builds against) matches JAX's at 4², 1 spp, 2 bounces, at TOL."""
+    import sail_tpu
     from sail_tpu_torch import scenes as tscenes
     from sail_tpu_torch.ops.cuda import megakernel as mk
-    assert mk.LIGHTS_MAX_CAP == mk.GRAD_CAPS[0]
-    for name in ("lights_and_quadrics", "area_lights"):
-        params, static = getattr(tscenes, name)().pack()
+    assert mk.LIGHTS_MAX_CAP == mk.GRAD_CAPS[-1] == 4096
+    assert mk.LIGHTS_CAPS == (1024, 4096)
+    for n, cap in ((24, 1024), (80, 4096)):
+        params, static = tscenes.lit_spheres(n).pack()
         assert mk.scene_table(static).lights
-        assert mk.grad_build(params.numel()) <= mk.LIGHTS_MAX_CAP
-    scene = tscenes.many_spheres(24)
-    scene.add(sail.PointLight((0.0, 0.9, 0.0), (1.0, 1.0, 1.0)))
-    params, static = scene.pack()
-    assert params.numel() > mk.LIGHTS_MAX_CAP
-    g = Vec3(*(torch.ones(4, 4) for _ in range(3)))
-    with pytest.raises(NotImplementedError, match="352"):
-        mk.render_grad_rows(params, static, g, 4, 4, 1, 0, 0, 2)
-    grad = mk.render_grad_block(params, static, g, 4, 4, 1, 0, 0, 2)
-    assert torch.isfinite(grad).all()
+        assert params.numel() > mk.GRAD_CAPS[mk.GRAD_CAPS.index(cap) - 1]
+        assert mk.grad_build(params.numel()) == cap
+        g = Vec3(*(torch.ones(4, 4) for _ in range(3)))
+        with pytest.raises(TypeError, match="CUDA tensor"):
+            mk.render_grad_rows(params, static, g, 4, 4, 1, 0, 0, 2)
+    packed, static = tscenes.lit_spheres(24, sail_tpu).pack()
+    want = _jax_grad(packed, static, 4, 4, 2)
+    params, tstatic = _bridge(packed, static)
+    assert params.numel() == 366 and len(want) == 366
+    got = _torch_grad(params, tstatic, 4, 4, 2)
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    assert np.abs(got).max() > 0
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    # the point light's row takes gradient
+    start = param_offsets(tstatic).lights[-1]
+    assert np.abs(got[start:start + 3]).max() > 0
+    plain = mk.render_grad_block(params, tstatic, Vec3(*(
+        torch.ones(4, 4) for _ in range(3))), 4, 4, 1, 0, 0, 2)
+    assert torch.isfinite(plain).all()
+
+
+def test_k2_lights_library_matches_the_wrapper():
+    """`megakernel_grad_lights.cu` builds the LIGHTS kernel of
+    `render_grad.cuh` at LIGHTS_CAPS, which its entry reports; the entry
+    takes K2's arguments; `megakernel_grad.cu` reports the largest cap as
+    LIGHTS_MAX_CAP."""
+    import ctypes
+    import os
+    import re
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.utils import build
+    with open(os.path.join(build.CSRC_DIR, "megakernel_grad_lights.cu")) as f:
+        text = f.read()
+    caps = re.search(r"constexpr int LIGHTS_CAPS\[\] = \{([\d, ]+)\};",
+                     text).group(1)
+    assert tuple(int(c) for c in caps.split(",")) == mk.LIGHTS_CAPS
+    params = re.search(r'extern "C" int sail_render_grad_lights\(([^)]*)\)',
+                       text).group(1)
+    assert [ctypes.c_void_p if "*" in p else ctypes.c_int
+            for p in params.split(",")] == mk.K2_ARGTYPES
+    assert "launch_grad<C, true, M, 0, 1, true>" in text
+    assert "render_grad.cuh" in {os.path.basename(p) for p in
+                                 build.sources("megakernel_grad_lights")}
+    with open(os.path.join(build.CSRC_DIR, "megakernel_grad.cu")) as f:
+        grad = f.read()
+    assert "constexpr int LIGHTS_MAX_CAP = CAPS[N_CAPS - 1];" in grad

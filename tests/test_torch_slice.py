@@ -86,8 +86,12 @@ def test_port_imports_no_jax():
             "sail_tpu_torch.utils.matrix, sail_tpu_torch.diff.boundary, "
             "sail_tpu_torch.diff.inverse, sail_tpu_torch.parallel.mesh, "
             "sail_tpu_torch.parallel.render_sharded, "
-            "sail_tpu_torch.tools.inverse_artifact; "
+            "sail_tpu_torch.parallel.elastic, "
+            "sail_tpu_torch.tools.inverse_artifact, "
+            "sail_tpu_torch.tools.mp_render_worker, "
+            "sail_tpu_torch.tools.dryrun_multichip; "
             "sail_tpu_torch.Renderer; sail_tpu_torch.Control; "
+            "sail_tpu_torch.ElasticRenderer; "
             "assert not [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sail_tpu.')) or m == 'sail_tpu'], "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'sail_tpu.')))")
