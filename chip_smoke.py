@@ -143,9 +143,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
  12. inverse rendering (BASELINE config 5, cornell_mirror perturbed) at
      1024² x 16 spp x 4 bounces: the target through one K1 launch, five
      train steps with the edge terms, each one K1, one K2 and one reduce
-     launch, the loss falling, timed; the interior gradient K2's bit for
-     bit, K1 and K2 against their plain versions on a row tile, the edge
-     terms on the card against the CPU at 64², a central difference.
+     launch and one trace_rays call (the silhouette term's straddle rays
+     in one batch), the loss falling, timed on the host clock and by CUDA
+     events; the kernels a step with and without the edge terms
+     (torch.profiler, utils/metrics.profile_trace); the split: the
+     silhouette term (its trace_rays call and its bisections), the
+     penumbra term, the step without them; the batched silhouette term
+     against the same sites traced one by one (within 1e-6 of the largest
+     leaf); the interior gradient K2's bit for bit, K1 and K2 against
+     their plain versions on a row tile, the edge terms on the card
+     against the CPU at 64², a central difference.
  13. the multi-device parallel/ on the one card: (a) render_sharded
      (cornell_mirror, 1024² x 64 x 5) over make_mesh(8, spp_axis=2) of
      ranks on cuda:0 through exactly 8 K1 launches, within relative 1e-5
@@ -160,6 +167,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
      them 3 steps timed; (d) NCCL at world size 1 (a tcp://127.0.0.1 free
      port): (a)'s render through the collectives bit for bit, then the
      process group destroyed.
+ 14. the last modules: tools/gpu_checks.py on the card (K1 bit for bit, K2
+     against autograd through the plain version, the one-rank sharded
+     render and gradient; its JSON line), the native image codec built
+     (utils/native.py) with its PNG pixels against the Python encoder's,
+     a 256² viewer frame of examples/viewer.py by part (K1, output, PNG)
+     served to a localhost request, examples/render_scenes.py at 64² x 4
+     on each of its scenes and examples/inverse_render.py for 3 steps at
+     64², their launches counted.
 Every kernel's bound is computed from this run's inputs: the FP32
 operations the plain version's masks say these paths need
 (sail_tpu_torch/utils/opcount.py) over 67 TFLOP/s, or the bytes over
@@ -249,6 +264,10 @@ INV_LR = 0.025
 BND_CHECK = 64
 BND_RTOL, BND_ATOL = 1e-4, 1e-4
 FD_EPS = 1e-2
+# the batched silhouette term against the same sites traced one by one:
+# |diff| <= BATCH_TOL·max|per-site| (the same float32 operations on the same
+# points; bit for bit on the CPU, tests/test_torch_boundary_batch.py)
+BATCH_TOL = 1e-6
 # phase 13: the multi-device parallel/ on one card: config 2 over MESH
 # (ranks, spp axis) at the main path's shape; the elastic renderer on those
 # ranks at ELASTIC (size, spp, bounces, chunk spp), half of them lost at
@@ -269,8 +288,19 @@ STRIP_CHECK = (64, 4, 3)
 MIX_RTOL = 1e-6
 DET_SHAPE = (256, 8, 5)
 OCC_SHAPE = (256, 4, 5)
-GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                       "goldens")
+# phase 14: gpu_checks' shape (size, spp, bounces), the viewer's frames
+# timed by part, render_scenes' shape (size, spp) and inverse_render's
+# (size, steps)
+GPU_CHECKS = (128, 2, 5)
+VIEWER_FRAMES = 8
+EXAMPLE_SHAPE = (64, 4)
+INVERSE_EXAMPLE = (64, 3)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDENS = os.path.join(ROOT, "tests", "goldens")
+# profiler traces and the examples' images: in the checkout's build/
+# (gitignored)
+TRACES = os.path.join(ROOT, "build", "traces")
+EXAMPLES_OUT = os.path.join(ROOT, "build", "examples")
 
 
 def mrays(ms: float, spp: int = SPP) -> float:
@@ -1734,6 +1764,37 @@ def host_ms(fn, *args, runs: int = 1, **kw):
     return res, statistics.median(times)
 
 
+class CallPatch:
+    """`module.name` replaced by a wrapper until `restore()`: `calls`
+    counts its calls; with `parts`, each call is also timed to a
+    synchronize on both sides into `parts[name]` (calls, ms, and for
+    trace_rays the rays)."""
+
+    def __init__(self, module, name: str, parts: dict = None):
+        self.module, self.name, self.calls = module, name, 0
+        self.fn = fn = getattr(module, name)
+
+        def wrapper(*args, **kw):
+            self.calls += 1
+            if parts is None:
+                return fn(*args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            part = parts.setdefault(name, {"calls": 0, "ms": 0.0, "rays": 0})
+            part["calls"] += 1
+            part["ms"] += (time.perf_counter() - t0) * 1e3
+            if name == "trace_rays":          # (scene, static, ro, ...)
+                part["rays"] += args[2].x.numel()
+            return res
+
+        setattr(module, name, wrapper)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
 def display_path(dev, card: str) -> list:
     """Phase 11: display and runtime.  BASELINE config 4 whole (its Gaussian
     filter), every filter and the lazy G-buffer on config 2, the fresh
@@ -1962,11 +2023,13 @@ def inverse_path(dev, card: str) -> list:
     boundary terms (printed, not held).  Returns the kernels' entries."""
     from sail_tpu_torch import scenes
     from sail_tpu_torch.core.vecmath import Vec3
+    from sail_tpu_torch.diff import boundary
     from sail_tpu_torch.diff.boundary import (boundary_term,
                                               full_boundary_term,
                                               mse_adjoint,
                                               shadow_boundary_term)
     from sail_tpu_torch.diff.inverse import finite_difference_grad
+    from sail_tpu_torch.utils import metrics
     from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.parallel import render_sharded as rs
     from sail_tpu_torch.parallel.mesh import make_mesh
@@ -2008,16 +2071,27 @@ def inverse_path(dev, card: str) -> list:
                               trainable=rs.trainable_mask(static,
                                                           ia.trainable))
     torch.cuda.reset_peak_memory_stats(dev)
-    losses, step_ms, per_step = [], [], []
+    losses, step_ms, step_ev_ms, per_step = [], [], [], []
+    traced = CallPatch(boundary, "trace_rays")
     for _ in range(INV_STEPS):
         before = counts()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        ev0.record()
         losses.append(float(step(target)))
+        ev1.record()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ev_ms.append(ev0.elapsed_time(ev1))
         per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+    traced.restore()
     launches = counts()
+    if traced.calls != INV_STEPS:
+        raise AssertionError(f"{INV_STEPS} train steps made {traced.calls} "
+                             f"trace_rays calls in the edge terms, not one "
+                             f"a step")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     if any(c != (1, 1, 1) for c in per_step):
         raise AssertionError(f"the train steps made {per_step} K1/K2/reduce "
@@ -2050,9 +2124,10 @@ def inverse_path(dev, card: str) -> list:
             f"abs diff {float((interior - k2_runs[0][0]).abs().max()):.3g}")
     dL = mse_adjoint(img0, target)
     bnd = full_boundary_term(q, static, dL, n, n, **edge_kw)
-    sil_ms = host_ms(boundary_term, q, static, dL, n, n, runs=3,
-                     **{k: edge_kw[k] for k in ("n_edge_samples", "n_noise",
-                                                "seed", "max_bounces")})[1]
+    sil_kw = {k: edge_kw[k] for k in ("n_edge_samples", "n_noise", "seed",
+                                      "max_bounces")}
+    sil, sil_ms = host_ms(boundary_term, q, static, dL, n, n, runs=3,
+                          **sil_kw)
     pen_ms = host_ms(shadow_boundary_term, q, static, dL, n, n, runs=3,
                      n_curve_samples=edge_kw["n_curve_samples"],
                      seed=edge_kw["seed"])[1]
@@ -2063,6 +2138,42 @@ def inverse_path(dev, card: str) -> list:
                                torch.optim.Adam([pi], lr=INV_LR),
                                max_bounces=bounces, boundary=False)
     interior_ms = host_ms(inner, target, runs=3)[1]
+    # the silhouette term's parts: its one trace_rays call and its
+    # bisections, each timed to a synchronize (one instrumented call)
+    parts = {}
+    timers = [CallPatch(boundary, name, parts)
+              for name in ("trace_rays", "_bisect")]
+    _, sil_timed_ms = host_ms(boundary_term, q, static, dL, n, n, **sil_kw)
+    for t in timers:
+        t.restore()
+    # the same sites traced one by one (the primitive per site), and the
+    # batch held against them
+    traced = CallPatch(boundary, "trace_rays")
+    site, site_ms = host_ms(boundary_term, q, static, dL, n, n,
+                            batched=False, **sil_kw)
+    traced.restore()
+    site_calls = traced.calls
+    batch_diff = float((sil - site).abs().max())
+    batch_bits = bool(torch.equal(sil, site))
+    if not (batch_diff <= BATCH_TOL * float(site.abs().max())
+            and bool(torch.isfinite(sil).all())):
+        raise AssertionError(f"the batched silhouette term is {batch_diff:.3g}"
+                             f" off the per-site one (max "
+                             f"{float(site.abs().max()):.3g})")
+    # kernels a step, with and without the edge terms (torch.profiler)
+    pp = start.to(dev, copy=True).requires_grad_()
+    prof_step = rs.make_train_step(static, mesh, n, n, spp,
+                                   torch.optim.Adam([pp], lr=INV_LR),
+                                   max_bounces=bounces,
+                                   trainable=rs.trainable_mask(
+                                       static, ia.trainable))
+    step_launches = {}
+    for name, fn in (("edge", prof_step), ("interior", inner)):
+        with metrics.profile_trace(os.path.join(TRACES, f"config5_{name}")
+                                   ) as prof:
+            fn(target)
+            torch.cuda.synchronize()
+        step_launches[name] = metrics.kernel_launches(prof)
 
     # -- K2 and K1 against their plain versions on a row tile of the step --
     t_rows, t_row0 = K2_TILE["cornell_mirror"]
@@ -2124,17 +2235,32 @@ def inverse_path(dev, card: str) -> list:
                                   bounces), q, cx, eps=FD_EPS)
     g_int, g_bnd = float(interior[cx]), float(bnd[cx])
 
+    tr_ms, bis_ms = parts["trace_rays"], parts["_bisect"]
     print(f"phase 12 inverse rendering: config 5 cornell_mirror {n}x{n} "
           f"spp{spp} b{bounces}, boundary on: the target 1 K1 launch; "
           f"{INV_STEPS} train steps (Adam lr {INV_LR}, inverse_artifact's "
-          f"trainable leaves) each {per_step[0]} K1/K2/reduce launches, "
+          f"trainable leaves) each {per_step[0]} K1/K2/reduce launches and "
+          f"one trace_rays call in the edge terms, "
           f"loss {' '.join(f'{x:.6g}' for x in losses)}; step "
-          f"{' '.join(f'{x:.1f}' for x in step_ms)} ms (median "
-          f"{step_med:.1f}); without the edge terms {interior_ms:.1f} ms "
+          f"{' '.join(f'{x:.1f}' for x in step_ms)} ms host clock (median "
+          f"{step_med:.1f}), {' '.join(f'{x:.1f}' for x in step_ev_ms)} ms "
+          f"CUDA events (median {statistics.median(step_ev_ms):.1f}); "
+          f"kernels a step (torch.profiler): with the edge terms "
+          f"{step_launches['edge']['kernels']} ("
+          f"{step_launches['edge']['launch_calls']} launch calls), without "
+          f"{step_launches['interior']['kernels']} ("
+          f"{step_launches['interior']['launch_calls']}); without the edge "
+          f"terms {interior_ms:.1f} ms "
           f"(K1 {k1_ms:.2f}, K2 {k2_ms:.2f}), so the edge terms "
           f"{100 * (1 - interior_ms / step_med):.1f}% of the step; alone "
-          f"(median of 3) the silhouettes {sil_ms:.1f} ms, the penumbras "
-          f"{pen_ms:.1f} ms; peak memory {peak_gb:.2f} GB "
+          f"(median of 3) the silhouettes {sil_ms:.1f} ms (one instrumented "
+          f"call {sil_timed_ms:.1f} ms: its trace_rays call "
+          f"{tr_ms['ms']:.1f} ms on {tr_ms['rays']} rays, its "
+          f"{bis_ms['calls']} bisections {bis_ms['ms']:.1f} ms), the "
+          f"penumbras {pen_ms:.1f} ms; the sites one by one {site_ms:.1f} ms"
+          f" in {site_calls} trace_rays calls, the batch "
+          f"{'bit-identical' if batch_bits else f'{batch_diff:.3g} off'}; "
+          f"peak memory {peak_gb:.2f} GB "
           f"| kr 0.45 -> {float(fitted[paths.index('.materials[1].kr')]):.4f}"
           f", emission 3.0 -> "
           f"{float(fitted[paths.index('.lights[0].emission.x')]):.4f}, "
@@ -2453,6 +2579,171 @@ def multi_device_path(dev, card: str) -> list:
                    "events")]
 
 
+def decode_png(data: bytes) -> np.ndarray:
+    """The (H, W, 3) uint8 pixels of an 8-bit RGB PNG with filter 0 on every
+    row (what both encoders write)."""
+    import struct
+    import zlib
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, w, h = 8, b"", None, None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + length
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 3 * w + 1)
+    if raw[:, 0].any():
+        raise AssertionError("a row with a PNG filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def tools_path(dev, card: str) -> list:
+    """Phase 14: the last modules.  tools/gpu_checks.py's main on the card
+    (its JSON on a line of its own); the native image codec built and its PNGs
+    against the Python encoder's; a 256² viewer frame of
+    examples/viewer.py timed by part and served to a localhost request;
+    examples/render_scenes.py at EXAMPLE_SHAPE on every scene it knows and
+    examples/inverse_render.py for INVERSE_EXAMPLE steps, their K1/K2/
+    reduce launches counted.  Returns no kernel entry."""
+    import contextlib
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from sail_tpu_torch import scenes
+    from sail_tpu_torch.examples import inverse_render, render_scenes, viewer
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.tools import gpu_checks
+    from sail_tpu_torch.utils import imageio, native
+
+    def counts():
+        return (mk.render_block.launches, mk.render_grad_block.launches,
+                mk.reduce_grad_rows.launches)
+
+    def zero():
+        mk.render_block.launches = mk.render_grad_block.launches = 0
+        mk.reduce_grad_rows.launches = 0
+
+    # -- tools/gpu_checks.py, its JSON line printed through -------------------
+    size, spp, bounces = GPU_CHECKS
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = gpu_checks.main(["--size", str(size), "--spp", str(spp),
+                              "--bounces", str(bounces)])
+    line = printed.getvalue().strip()
+    print(line, flush=True)
+    checks = json.loads(line.splitlines()[-1])
+    if rc != 0 or not checks["ok"]:
+        raise AssertionError(f"gpu_checks failed ({rc}): {checks}")
+    os.makedirs(EXAMPLES_OUT, exist_ok=True)
+
+    # -- the native codec: built, and its PNGs against the Python encoder's --
+    if not native.available():
+        raise AssertionError(f"the native image codec did not build: "
+                             f"{native._error}")
+    scene = scenes.cornell_mirror()
+    scene.filter = "gamma"
+    state = viewer.ViewerState(scene, VIEWER, dev)
+    state.step()
+    out = state.renderer.output(state.scene)
+    u8 = imageio.to_uint8(out)
+    nat_u8 = native.tonemap_u8(out)
+    png_nat, png_py = native.encode_png(u8), imageio._png_bytes_py(u8)
+    lut_diff = int(np.abs(nat_u8.astype(int) - u8.astype(int)).max())
+    if not (np.array_equal(decode_png(png_nat), u8)
+            and np.array_equal(decode_png(png_py), u8)
+            and np.array_equal(decode_png(imageio.png_bytes(out)), nat_u8)
+            and lut_diff <= 3):
+        raise AssertionError(f"the native and Python PNGs decode to other "
+                             f"pixels (the LUT {lut_diff}/255 off pow)")
+
+    # -- a viewer frame by part: K1 (render), output, the PNG -----------------
+    parts = {"render": [], "output": [], "png": [], "png_python": []}
+    for _ in range(VIEWER_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state.renderer.render(state.scene)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frame = state.renderer.output(state.scene)
+        t2 = time.perf_counter()
+        png = imageio.png_bytes(frame)
+        t3 = time.perf_counter()
+        imageio._png_bytes_py(imageio.to_uint8(frame))
+        t4 = time.perf_counter()
+        for k, a, b in (("render", t0, t1), ("output", t1, t2),
+                        ("png", t2, t3), ("png_python", t3, t4)):
+            parts[k].append((b - a) * 1e3)
+    ms = {k: statistics.median(v) for k, v in parts.items()}
+    frame_ms = ms["render"] + ms["output"] + ms["png"]
+    state.png = png
+    server = ThreadingHTTPServer(("127.0.0.1", 0), viewer.make_handler(state))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.server_address[1]}/frame.png",
+                timeout=60) as r:
+            served = r.read()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    if served != png or decode_png(served).shape != (VIEWER, VIEWER, 3):
+        raise AssertionError("the viewer served another frame")
+
+    # -- examples/render_scenes.py on every scene it knows ------------------
+    size, spp = EXAMPLE_SHAPE
+    zero()
+    scene_text = []
+    for name in render_scenes.SCENES:
+        path, meter, img = render_scenes.render(name, size, spp, BOUNCES,
+                                                EXAMPLES_OUT)
+        if not (np.isfinite(img).all() and img.mean() > 0
+                and os.path.getsize(path) > 0):
+            raise AssertionError(f"render_scenes {name}: bad image")
+        scene_text.append(f"{name} {meter.seconds * 1e3:.2f} ms")
+    rs_launches = counts()
+    if rs_launches != (2 * len(render_scenes.SCENES), 0, 0):
+        raise AssertionError(f"render_scenes made {rs_launches} K1/K2/reduce "
+                             f"launches, not two K1 a scene")
+
+    # -- examples/inverse_render.py ----------------------------------------
+    isize, isteps = INVERSE_EXAMPLE
+    zero()
+    t0 = time.perf_counter()
+    res = inverse_render.main(["--size", str(isize), "--steps", str(isteps),
+                               "--out", EXAMPLES_OUT])
+    inv_s = time.perf_counter() - t0
+    inv_launches = counts()
+    losses = res["losses"]
+    if inv_launches != (isteps + 3, isteps, isteps) or not (
+            np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"inverse_render made {inv_launches} K1/K2/"
+                             f"reduce launches, losses {losses}")
+
+    print(f"phase 14 tools and examples: gpu_checks ok ({checks['config']}: "
+          f"K1 bit-identical, K2 rel Linf {checks['grad_rel_linf']:.3g}, "
+          f"sharded grad {checks['sharded_grad_rel_linf']:.3g}) | native "
+          f"codec built; its encoder's PNG and the Python encoder's decode to"
+          f" the same pixels, its LUT within {lut_diff}/255 of pow | viewer "
+          f"{VIEWER}x{VIEWER} cornell_mirror frame {frame_ms:.2f} ms (median "
+          f"of {VIEWER_FRAMES}: render {ms['render']:.2f}, output "
+          f"{ms['output']:.2f}, native PNG {ms['png']:.2f}; the Python PNG "
+          f"{ms['png_python']:.2f}), served to a localhost request | "
+          f"render_scenes {size}x{size} spp{spp} b{BOUNCES}: "
+          f"{', '.join(scene_text)}, {rs_launches[0]} K1 launches | "
+          f"inverse_render {isize}x{isize} {isteps} steps: loss "
+          f"{' '.join(f'{x:.6g}' for x in losses)}, {inv_launches} "
+          f"K1/K2/reduce launches, {inv_s:.1f} s | {card}", flush=True)
+    return []
+
+
 def kernel_vs_plain(dev, card: str) -> list:
     """Phase 2: K1 against its plain version on the card, and the goldens.
     Returns no kernel entry (phase 3 gives K1's)."""
@@ -2639,7 +2930,8 @@ def main() -> int:
                       (6, many_gradients), (7, materials_path),
                       (8, profiling_path), (9, k2_phases),
                       (10, lights_path), (11, display_path),
-                      (12, inverse_path), (13, multi_device_path)):
+                      (12, inverse_path), (13, multi_device_path),
+                      (14, tools_path)):
         t1 = time.perf_counter()
         kernels += fn(dev, card)
         seconds[phase] = time.perf_counter() - t1

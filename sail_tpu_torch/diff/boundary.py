@@ -139,24 +139,77 @@ def sphere_silhouette(cam: CameraParams, center: Vec3, radius, ts):
 def _edge_radiance_delta(packed, static, cols, rows, normals, height, width,
                          seed, n_noise, delta_px, max_bounces):
     """Δf = f_inside − f_outside at screen edge points, from ray pairs offset
-    ∓delta_px along the screen normal, both sides drawing the same random
-    numbers (the edge pixel's streams).  A Vec3 of (M,) tensors, detached."""
+    ∓delta_px (a number, or a tensor of one offset per point) along the
+    screen normal, both sides drawing the same random numbers (the edge
+    pixel's streams).  The `n_noise` passes are stacked on a leading axis
+    and traced in one `trace_rays` call, then added in pass order.  A Vec3
+    of (M,) tensors, detached."""
     nx, ny = normals
-    off = torch.stack([cols - delta_px * nx, cols + delta_px * nx])  # (2, M)
-    orr = torch.stack([rows - delta_px * ny, rows + delta_px * ny])
-    ii = _pixel_index(rows, height).broadcast_to(orr.shape)
-    jj = _pixel_index(cols, width).broadcast_to(off.shape)
-    acc = None
     with torch.no_grad():
-        for k in range(n_noise):
-            noise = rng.pixel_noise(seed, 7919 + k, ii=ii, jj=jj)
-            ro, rd = rays_for_pixels(packed.camera, orr, off, height, width,
-                                     jitter_x=0.0, jitter_y=0.0)
-            color = trace_rays(packed, static, ro, rd, noise, max_bounces)
-            acc = color if acc is None else acc + color
-    f = acc * (1.0 / n_noise)
+        off = torch.stack([cols - delta_px * nx, cols + delta_px * nx])
+        orr = torch.stack([rows - delta_px * ny, rows + delta_px * ny])
+        shape = (n_noise, *off.shape)                          # (n, 2, M)
+        ii = _pixel_index(rows, height).broadcast_to(shape)
+        jj = _pixel_index(cols, width).broadcast_to(shape)
+        samples = 7919 + torch.arange(n_noise)
+        noise = rng.pixel_noise(seed, samples[:, None, None], ii=ii, jj=jj)
+        ro, rd = rays_for_pixels(packed.camera, orr, off, height, width,
+                                 jitter_x=0.0, jitter_y=0.0)
+        color = trace_rays(packed, static, ro.broadcast_to(shape),
+                           rd.broadcast_to(shape), noise, max_bounces)
+        acc = Vec3(*(c[0] for c in color))
+        for k in range(1, n_noise):
+            acc = acc + Vec3(*(c[k] for c in color))
+        f = acc * (1.0 / n_noise)
     # index 0 inside, 1 outside
     return Vec3(f.x[0] - f.x[1], f.y[0] - f.y[1], f.z[0] - f.z[1])
+
+
+class _Straddles:
+    """The straddle points of one `boundary_term` call's silhouette sites
+    and their Δf.  Each site `add`s its points (and a second set at δ/4
+    where it extrapolates) and reads its Δf back by the handle `add`
+    returned once `trace` has run.  Batched, `trace` runs one
+    `_edge_radiance_delta` over the concatenation of every site's points,
+    one offset per point, and splits the result back: every ray's random
+    numbers key on its own pixel, so each Δf is the one its site would
+    get alone.  Unbatched, each `add` calls it at once for that site's
+    points alone (the per-site path the batch is held against)."""
+
+    def __init__(self, packed, static, height, width, seed, n_noise,
+                 max_bounces, batched: bool):
+        self.trace_args = (packed, static)
+        self.kw = dict(height=height, width=width, seed=seed,
+                       n_noise=n_noise, max_bounces=max_bounces)
+        self.batched = batched
+        self.points = []       # (cols, rows, nx, ny, delta_px) per request
+        self.df = []
+
+    def add(self, cols, rows, normals, delta_px: float) -> int:
+        if self.batched:
+            self.points.append((cols, rows, *normals, delta_px))
+            return len(self.points) - 1
+        self.df.append(_edge_radiance_delta(
+            *self.trace_args, cols, rows, normals, delta_px=delta_px,
+            **self.kw))
+        return len(self.df) - 1
+
+    def trace(self):
+        if not (self.batched and self.points):
+            return
+        with torch.no_grad():
+            sizes = [p[0].numel() for p in self.points]
+            cols, rows, nx, ny = (torch.cat([p[i] for p in self.points])
+                                  for i in range(4))
+            delta = torch.cat([torch.full_like(p[0], p[4])
+                               for p in self.points])
+            df = _edge_radiance_delta(*self.trace_args, cols, rows, (nx, ny),
+                                      delta_px=delta, **self.kw)
+            self.df = [Vec3(*parts) for parts in
+                       zip(*(c.split(sizes) for c in df))]
+
+    def __getitem__(self, handle: int) -> Vec3:
+        return self.df[handle]
 
 
 def _gather(d_loss_d_image: Vec3, df: Vec3, pi, pj):
@@ -191,10 +244,9 @@ def _box_edge_endpoints(bmin: Vec3, bmax: Vec3):
             Vec3(*(torch.stack(b_comp[c]) for c in range(3))))
 
 
-def _box_edge_scalar(pk, pk_detached, static, obj_idx: int,
-                     d_loss_d_image: Vec3, height: int, width: int,
-                     seed: int, n_noise: int, delta_px: float,
-                     max_bounces: int, k_per_edge: int, scale: float):
+def _box_edge_site(pk, pk_detached, static, obj_idx: int, height: int,
+                   width: int, delta_px: float, k_per_edge: int,
+                   scale: float, straddles: _Straddles):
     """Edge scalar of one box-like object's 12 straight edges (Cube,
     Rectangle, Cornellbox), each sampled at `k_per_edge` midpoints; only
     the projected midpoints stay live.  A straight segment projects to a
@@ -202,7 +254,11 @@ def _box_edge_scalar(pk, pk_detached, static, obj_idx: int,
     the exact tangent and arc length.  `scale` is 0.5 for a Rectangle: a
     flat box enumerates each of its edges twice.  With Δf = f(x − δn) −
     f(x + δn) for either unit normal n, flipping n flips both factors, so
-    no orientation step is needed."""
+    no orientation step is needed.
+
+    The geometry runs here and the straddle points go to `straddles`; the
+    returned function takes the loss adjoint and, once `straddles` has
+    traced, gives the scalar."""
     sp = pk.objects[obj_idx]
     A, B = _box_edge_endpoints(sp.bmin, sp.bmax)
     like = A.x
@@ -228,19 +284,19 @@ def _box_edge_scalar(pk, pk_detached, static, obj_idx: int,
     col_d, row_d = col.detach(), row.detach()
     in_front = ((depth.detach() > 0.0) & (depthb[:, 1:] > 0.0)
                 & (depthb[:, :-1] > 0.0))
-    df = _edge_radiance_delta(pk_detached, static, col_d.reshape(-1),
-                              row_d.reshape(-1),
-                              (nx.reshape(-1), ny.reshape(-1)), height,
-                              width, seed, n_noise, delta_px, max_bounces)
-    df = Vec3(*(c.reshape(col_d.shape) for c in df))
+    handle = straddles.add(col_d.reshape(-1), row_d.reshape(-1),
+                           (nx.reshape(-1), ny.reshape(-1)), delta_px)
 
-    pi = _pixel_index(row_d, height)
-    pj = _pixel_index(col_d, width)
-    inside_img = ((row_d >= 0) & (row_d < height) & (col_d >= 0)
-                  & (col_d < width) & in_front)
-    w_df = _gather(d_loss_d_image, df, pi, pj)
-    coeff = torch.where(inside_img, w_df * dl * scale, 0.0)
-    return torch.sum(coeff * (nx * col + ny * row))
+    def finish(d_loss_d_image: Vec3):
+        df = Vec3(*(c.reshape(col_d.shape) for c in straddles[handle]))
+        pi = _pixel_index(row_d, height)
+        pj = _pixel_index(col_d, width)
+        inside_img = ((row_d >= 0) & (row_d < height) & (col_d >= 0)
+                      & (col_d < width) & in_front)
+        w_df = _gather(d_loss_d_image, df, pi, pj)
+        coeff = torch.where(inside_img, w_df * dl * scale, 0.0)
+        return torch.sum(coeff * (nx * col + ny * row))
+    return finish
 
 
 _BOX_CATEGORIES = (C.CUBE, C.RECTANGLE, C.CORNELLBOX)
@@ -248,23 +304,25 @@ _REVOLUTION_CATEGORIES = (C.CONE, C.CYLINDER, C.DISK, C.PARABOLOID,
                           C.HYPERBOLOID)
 
 
-def _curve_edge_scalar(pk, pk_detached, static, pts_fn, n_pts: int,
-                       d_loss_d_image: Vec3, height: int, width: int,
-                       seed: int, n_noise: int, delta_px: float,
-                       max_bounces: int, grazing: bool,
-                       extrapolate: bool = True):
+def _curve_edge_site(pk, pk_detached, pts_fn, n_pts: int, height: int,
+                     width: int, delta_px: float, grazing: bool,
+                     extrapolate: bool, straddles: _Straddles):
     """Edge scalar of one parametric silhouette curve `pts_fn(pk, ts) ->
-    (points, mask)` for ts in [0, 1] (a closed curve wraps at 1).  Live: the
-    curve points (of the shape's parameters and the camera).  Detached: the
-    screen tangents and arc lengths (from interval boundaries), Δf and the
-    mask.  `grazing`: a smooth silhouette, whose inside straddle ray lands
-    ~√δ from the rim, so Δf takes the 2·Δf(δ/4) − Δf(δ) extrapolation;
-    sharp rims land O(δ) away and skip it."""
+    (points, mask)` for ts in [0, 1] (a closed curve wraps at 1), in the
+    two stages of `_box_edge_site`.  Live: the curve points (of the
+    shape's parameters and the camera).  Detached: the screen tangents and
+    arc lengths (from interval boundaries), Δf and the mask.  `grazing`: a
+    smooth silhouette, whose inside straddle ray lands ~√δ from the rim,
+    so Δf takes the 2·Δf(δ/4) − Δf(δ) extrapolation; sharp rims land O(δ)
+    away and skip it."""
     like = pk.camera.eye.x
     tm = _arange(n_pts, like, 0.5)
     tb = _arange(n_pts + 1, like, div=n_pts)
-    mid, mmask = pts_fn(pk, tm)
-    bnd, _ = pts_fn(pk_detached, tb)
+    if hasattr(pts_fn, "pair"):           # one solve for both point sets
+        (mid, mmask), (bnd, _) = pts_fn.pair(pk, tm, pk_detached, tb)
+    else:
+        mid, mmask = pts_fn(pk, tm)
+        bnd, _ = pts_fn(pk_detached, tb)
     col, row, depth = screen_project(pk.camera, mid, height, width)
     colb, rowb, depthb = screen_project(pk_detached.camera, _detach(bnd),
                                         height, width)
@@ -277,22 +335,68 @@ def _curve_edge_scalar(pk, pk_detached, static, pts_fn, n_pts: int,
     col_d, row_d = col.detach(), row.detach()
     in_front = ((depth.detach() > 0.0) & (depthb[1:] > 0.0)
                 & (depthb[:-1] > 0.0))
-    df = _edge_radiance_delta(pk_detached, static, col_d, row_d, (nx, ny),
-                              height, width, seed, n_noise, delta_px,
-                              max_bounces)
-    if grazing and extrapolate:
-        df_q = _edge_radiance_delta(pk_detached, static, col_d, row_d,
-                                    (nx, ny), height, width, seed, n_noise,
-                                    delta_px / 4.0, max_bounces)
-        df = df_q * 2.0 - df
+    handle = straddles.add(col_d, row_d, (nx, ny), delta_px)
+    quarter = (straddles.add(col_d, row_d, (nx, ny), delta_px / 4.0)
+               if grazing and extrapolate else None)
 
-    pi = _pixel_index(row_d, height)
-    pj = _pixel_index(col_d, width)
-    ok = ((row_d >= 0) & (row_d < height) & (col_d >= 0) & (col_d < width)
-          & in_front & (mmask.detach() > 0.5))
-    w_df = _gather(d_loss_d_image, df, pi, pj)
-    coeff = torch.where(ok, w_df * dl, 0.0)
-    return torch.sum(coeff * (nx * col + ny * row))
+    def finish(d_loss_d_image: Vec3):
+        df = straddles[handle]
+        if quarter is not None:
+            df = straddles[quarter] * 2.0 - df
+        pi = _pixel_index(row_d, height)
+        pj = _pixel_index(col_d, width)
+        ok = ((row_d >= 0) & (row_d < height) & (col_d >= 0)
+              & (col_d < width) & in_front & (mmask.detach() > 0.5))
+        w_df = _gather(d_loss_d_image, df, pi, pj)
+        coeff = torch.where(ok, w_df * dl, 0.0)
+        return torch.sum(coeff * (nx * col + ny * row))
+    return finish
+
+
+def _sphere_edge_site(pk, i: int, ts: torch.Tensor, height: int, width: int,
+                      delta_px: float, extrapolate: bool,
+                      straddles: _Straddles):
+    """Edge scalar of sphere `i`'s tangent circle, in the two stages of
+    `_box_edge_site`: the screen tangent by central differences over the
+    closed circle's samples, the normal outward from the projected
+    center, and the 2·Δf(δ/4) − Δf(δ) extrapolation (the inside ray
+    grazes the sphere ~√δ from the rim: Δf(δ) = Δf(0) + a·√δ + O(δ))."""
+    sp = pk.objects[i]
+    s = sphere_silhouette(pk.camera, sp.center, sp.radius, ts)
+    col, row, depth = screen_project(pk.camera, s, height, width)
+
+    # -- detached coefficients ---------------------------------------------
+    col_d, row_d = col.detach(), row.detach()
+    # a difference spans two samples
+    tx = torch.roll(col_d, -1, 0) - torch.roll(col_d, 1, 0)
+    ty = torch.roll(row_d, -1, 0) - torch.roll(row_d, 1, 0)
+    dl = 0.5 * torch.sqrt(tx * tx + ty * ty)
+    ccol, crow, _ = screen_project(pk.camera, _detach(sp.center), height,
+                                   width)
+    nx, ny = ty, -tx
+    nlen = torch.sqrt(nx * nx + ny * ny) + 1e-12
+    nx, ny = nx / nlen, ny / nlen
+    flip = torch.sign((col_d - ccol) * nx + (row_d - crow) * ny)
+    nx, ny = nx * flip, ny * flip
+    in_front = depth.detach() > 0.0
+    handle = straddles.add(col_d, row_d, (nx, ny), delta_px)
+    quarter = (straddles.add(col_d, row_d, (nx, ny), delta_px / 4.0)
+               if extrapolate else None)
+
+    def finish(d_loss_d_image: Vec3):
+        df = straddles[handle]
+        if quarter is not None:
+            df = straddles[quarter] * 2.0 - df
+        # the loss adjoint at the edge pixel (box filter: floor gather)
+        pi = _pixel_index(row_d, height)
+        pj = _pixel_index(col_d, width)
+        inside_img = ((row_d >= 0) & (row_d < height) & (col_d >= 0)
+                      & (col_d < width) & in_front)
+        coeff = torch.where(inside_img,
+                            _gather(d_loss_d_image, df, pi, pj) * dl, 0.0)
+        # live: the edge's screen position
+        return torch.sum(coeff * (nx * col + ny * row))
+    return finish
 
 
 def _fill(z, ts: torch.Tensor) -> torch.Tensor:
@@ -305,7 +409,7 @@ def _fill(z, ts: torch.Tensor) -> torch.Tensor:
 def _revolution_curves(static, i: int, n_edge_samples: int):
     """Silhouette curves of object `i`, a surface of revolution about its
     local z axis (world +y, `ops/intersect.to_object`): a list of (pts_fn,
-    n_pts, grazing) for `_curve_edge_scalar`.  Rim circles are sharp edges
+    n_pts, grazing) for `_curve_edge_site`.  Rim circles are sharp edges
     where the clipped surface ends; the smooth silhouettes are the
     view-tangency curves: the cone's two generator lines at azimuths
     φ₀ ± acos(−tanα·v_z/ρ) (v the eye from the apex), the cylinder's at
@@ -462,11 +566,16 @@ def _first_true(mask: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 
 def _bisect(f, lo, hi, steps: int = 30):
-    """`steps` halvings of [lo, hi] keeping the sign change of f."""
+    """`steps` halvings of [lo, hi] keeping the sign change of f; f(lo) is
+    carried from the step that moved lo (the same value f would give it
+    again), so each step evaluates f once."""
+    f_lo = f(lo)
     for _ in range(steps):
         mid = 0.5 * (lo + hi)
-        same = f(mid) * f(lo) > 0.0
+        f_mid = f(mid)
+        same = f_mid * f_lo > 0.0
         lo, hi = torch.where(same, mid, lo), torch.where(same, hi, mid)
+        f_lo = torch.where(same, f_mid, f_lo)
     return lo, hi
 
 
@@ -488,26 +597,36 @@ def _mirror_sphere_silhouette_fn(m_idx: int, s_idx: int):
     has the implicit-function derivative at the root, so gradients reach S,
     the mirror and the camera.  Points lie at unit distance from the eye
     along the discontinuity ray (the projection needs only the
-    direction)."""
+    direction).
+
+    `pts_fn.pair(pk, tm, pk_detached, tb)` gives `(pts_fn(pk, tm),
+    pts_fn(pk_detached, tb))` from one center solve and one radial
+    bisection over the azimuths of both (the two views hold the same
+    values, and the solves read only their detached values)."""
     FD_EPS = 1e-4
 
-    def pts_fn(pk, ts):
-        mp = pk.objects[m_idx]
-        sp = pk.objects[s_idx]
-        e, m, R = pk.camera.eye, mp.center, mp.radius
-        c, r = sp.center, sp.radius
+    def solve(pairs):
+        pk0 = pairs[0][0]
 
-        em = e - m
-        d_em = em.length()
-        u1 = em * (1.0 / vm.clip(d_em, 1e-9))
-        cm = c - m
-        pn_raw = u1.cross(cm)
-        pn_len = pn_raw.length()
-        pn = vm.where(pn_len > 1e-7, pn_raw * (1.0 / vm.clip(pn_len, 1e-12)),
-                      vm.ortho(u1).normalize())
-        u2 = pn.cross(u1)
-        u2 = u2 * torch.where(u2.dot(cm) < 0.0, -1.0, 1.0)
-        pn_d = _detach(pn)
+        def frame(pk):
+            mp, sp = pk.objects[m_idx], pk.objects[s_idx]
+            e, m, R = pk.camera.eye, mp.center, mp.radius
+            c, r = sp.center, sp.radius
+            em = e - m
+            d_em = em.length()
+            u1 = em * (1.0 / vm.clip(d_em, 1e-9))
+            cm = c - m
+            pn_raw = u1.cross(cm)
+            pn_len = pn_raw.length()
+            pn = vm.where(pn_len > 1e-7,
+                          pn_raw * (1.0 / vm.clip(pn_len, 1e-12)),
+                          vm.ortho(u1).normalize())
+            u2 = pn.cross(u1)
+            u2 = u2 * torch.where(u2.dot(cm) < 0.0, -1.0, 1.0)
+            return e, m, R, c, r, d_em, u1, u2, pn
+
+        frames = [frame(pk) for pk, _ in pairs]
+        pn_d = _detach(frames[0][8])
 
         def make_h(ev, mv, Rv, cv, u1v, u2v):
             def h(psi):
@@ -519,10 +638,10 @@ def _mirror_sphere_silhouette_fn(m_idx: int, s_idx: int):
                 return d_r.cross(cq).dot(pn_d)
             return h
 
+        e, m, R, c, r, d_em, u1, u2, _ = frames[0]
         h_d = make_h(*map(_detach, (e, m, R, c, u1, u2)))
-        h_l = make_h(e, m, R, c, u1, u2)
 
-        # -- the Alhazen center (a detached scalar solve) ------------------
+        # -- the Alhazen center (a detached scalar solve) --------------------
         R_d, d_em_d = R.detach(), d_em.detach()
         psi_hi = torch.acos(vm.clip(R_d / torch.maximum(d_em_d, R_d + 1e-6),
                                     0.0, 1.0 - 1e-7))
@@ -538,18 +657,26 @@ def _mirror_sphere_silhouette_fn(m_idx: int, s_idx: int):
         dh = (h_d(psi0 + FD_EPS) - h_d(psi0 - FD_EPS)) / (2.0 * FD_EPS)
         dh = torch.where(torch.abs(dh) < 1e-9,
                          torch.where(dh < 0.0, -1e-9, 1e-9), dh)
-        psi_live = psi0 - h_l(psi0) / dh.detach()
 
-        q_c = m + (u1 * torch.cos(psi_live) + u2 * torch.sin(psi_live)) * R
-        a = (q_c - e).normalize()
-        e1 = vm.ortho(a).normalize()
-        e2 = a.cross(e1)
+        def center_frame(e, m, R, c, r, d_em, u1, u2, pn):
+            """The live image center's ray a and its frame."""
+            h_l = make_h(e, m, R, c, u1, u2)
+            psi_live = psi0 - h_l(psi0) / dh.detach()
+            q_c = m + (u1 * torch.cos(psi_live)
+                       + u2 * torch.sin(psi_live)) * R
+            a = (q_c - e).normalize()
+            e1 = vm.ortho(a).normalize()
+            return a, e1, a.cross(e1)
 
-        # -- the radial solve per azimuth (over ts) -------------------------
-        ang = TWO_PI * ts
-        cphi, sphi = torch.cos(ang), torch.sin(ang)
+        centers = [center_frame(*f) for f in frames]
 
-        def make_g(ev, mv, Rv, cv, rv, av, e1v, e2v):
+        # -- the radial solve per azimuth, over every pair's azimuths ------
+        sizes = [ts.shape[0] for _, ts in pairs]
+        ts_all = torch.cat([ts for _, ts in pairs])
+        ang = TWO_PI * ts_all
+        cphi_all, sphi_all = torch.cos(ang), torch.sin(ang)
+
+        def make_g(ev, mv, Rv, cv, rv, av, e1v, e2v, cphi, sphi):
             def g(beta):
                 v = (av * torch.cos(beta)
                      + (e1v * cphi + e2v * sphi) * torch.sin(beta))
@@ -568,14 +695,15 @@ def _mirror_sphere_silhouette_fn(m_idx: int, s_idx: int):
                 return torch.where(ok, dist - rv, 1e3), ok
             return g
 
-        g_d = make_g(*map(_detach, (e, m, R, c, r, a, e1, e2)))
-        g_l = make_g(e, m, R, c, r, a, e1, e2)
+        a, e1, e2 = centers[0]
+        g_d = make_g(*map(_detach, (e, m, R, c, r, a, e1, e2)), cphi_all,
+                     sphi_all)
 
         beta_max = 2.2 * torch.asin(vm.clip(
             R_d / torch.maximum(d_em_d, R_d + 1e-6), 0.0, 1.0))
         NB = 48
-        npts = ts.shape[0]
-        frac = _arange(NB, ts, 1.0)
+        npts = ts_all.shape[0]
+        frac = _arange(NB, ts_all, 1.0)
         bs = (frac[:, None] * beta_max).expand(NB, npts)
         gs, oks = g_d(bs)
         pos = gs > 0.0
@@ -586,7 +714,7 @@ def _mirror_sphere_silhouette_fn(m_idx: int, s_idx: int):
         ok_hi = torch.gather(oks, 0, bidx[None, :])[0]
         lo = torch.where(bidx > 0, torch.gather(
             bs, 0, torch.clamp(bidx - 1, min=0)[None, :])[0],
-            torch.zeros_like(ts))
+            torch.zeros_like(ts_all))
         hi = torch.gather(bs, 0, bidx[None, :])[0]
         lo, hi = _bisect(lambda b: g_d(b)[0], lo, hi)
         beta0 = (0.5 * (lo + hi)).detach()
@@ -594,15 +722,27 @@ def _mirror_sphere_silhouette_fn(m_idx: int, s_idx: int):
               / (2.0 * FD_EPS))
         gp = torch.where(torch.abs(gp) < 1e-6,
                          torch.where(gp < 0.0, -1e-6, 1e-6), gp)
-        beta_live = beta0 - g_l(beta0)[0] / gp.detach()
-
-        v_live = (a * torch.cos(beta_live)
-                  + (e1 * cphi + e2 * sphi) * torch.sin(beta_live))
-        pts = e + v_live
         mask = (found_c & (d_em_d > R_d * (1.0 + 1e-4)) & found_b & ok_hi
                 & (bidx > 0))
-        return pts, mask.to(ts.dtype)
 
+        out = []
+        parts = zip(beta0.split(sizes), gp.split(sizes), mask.split(sizes),
+                    cphi_all.split(sizes), sphi_all.split(sizes))
+        for frame_i, (a, e1, e2), (beta0_i, gp_i, mask_i, cphi, sphi) in zip(
+                frames, centers, parts):
+            e, m, R, c, r = frame_i[:5]
+            g_l = make_g(e, m, R, c, r, a, e1, e2, cphi, sphi)
+            beta_live = beta0_i - g_l(beta0_i)[0] / gp_i.detach()
+            v_live = (a * torch.cos(beta_live)
+                      + (e1 * cphi + e2 * sphi) * torch.sin(beta_live))
+            out.append((e + v_live, mask_i.to(ts_all.dtype)))
+        return out
+
+    def pts_fn(pk, ts):
+        return solve([(pk, ts)])[0]
+
+    pts_fn.pair = lambda pk, tm, pk_detached, tb: tuple(
+        solve([(pk, tm), (pk_detached, tb)]))
     return pts_fn
 
 
@@ -635,13 +775,19 @@ def boundary_term(params: torch.Tensor, static, d_loss_d_image,
                   height: int, width: int, n_edge_samples: int = 256,
                   n_noise: int = 4, delta_px: float = 0.35, seed: int = 0,
                   max_bounces: int = C.MAX_BOUNCES,
-                  extrapolate: bool = True) -> torch.Tensor:
+                  extrapolate: bool = True,
+                  batched: bool = True) -> torch.Tensor:
     """The primary-visibility boundary contribution to dL/d(params) for a
     loss with per-pixel, per-channel adjoint `d_loss_d_image` (a Vec3 of
     (H, W) tensors or an (H, W, 3) array: ∂L/∂image, e.g. 2·(img −
     target)/N for the mean squared error).  A flat tensor like `params`,
     zero for parameters without a handled silhouette; add it to the
-    interior (autograd) gradient."""
+    interior (autograd) gradient.
+
+    Each silhouette site (a box's edges, a curve, a sphere's circle) first
+    runs its geometry and hands its straddle points to one `_Straddles`;
+    `batched` traces them all in one `trace_rays` call, else site by site;
+    then each site finishes its scalar, added in site order."""
     dL = _adjoint(d_loss_d_image, params)
     sphere_ids = _categories(static, (C.SPHERE,))
     box_ids = _categories(static, _BOX_CATEGORIES)
@@ -659,76 +805,40 @@ def boundary_term(params: torch.Tensor, static, d_loss_d_image,
     # straight edges need no √δ extrapolation: one Δf batch per box
     k_per_edge = max(4, n_edge_samples // 24)
     n_mirror = max(16, n_edge_samples // 2)
-    curve = dict(d_loss_d_image=dL, height=height, width=width, seed=seed,
-                 n_noise=n_noise, delta_px=delta_px, max_bounces=max_bounces)
+    size = dict(height=height, width=width, delta_px=delta_px)
 
     def edge_scalar(pk, pk_detached):
-        total = torch.zeros((), dtype=params.dtype, device=params.device)
+        straddles = _Straddles(pk_detached, static, height, width, seed,
+                               n_noise, max_bounces, batched)
+        sites = []
         for i in box_ids:
             scale = 0.5 if static.object_categories[i] == C.RECTANGLE else 1.0
-            total = total + _box_edge_scalar(
-                pk, pk_detached, static, i, dL, height, width, seed, n_noise,
-                delta_px, max_bounces, k_per_edge, scale)
+            sites.append(_box_edge_site(pk, pk_detached, static, i,
+                                        k_per_edge=k_per_edge, scale=scale,
+                                        straddles=straddles, **size))
         for i in rev_ids:
             for pts_fn, n_pts, grazing in _revolution_curves(static, i,
                                                              n_edge_samples):
-                total = total + _curve_edge_scalar(
-                    pk, pk_detached, static, pts_fn, n_pts, grazing=grazing,
-                    extrapolate=extrapolate, **curve)
+                sites.append(_curve_edge_site(
+                    pk, pk_detached, pts_fn, n_pts, grazing=grazing,
+                    extrapolate=extrapolate, straddles=straddles, **size))
         for silhouette_in, mirror_ids in (
                 (_planar_mirror_silhouette_fn, mirror_rect_ids),
                 (_mirror_sphere_silhouette_fn, mirror_sphere_ids)):
             for m_idx in mirror_ids:
                 for s_idx in sphere_ids:
                     if s_idx != m_idx:
-                        total = total + _curve_edge_scalar(
-                            pk, pk_detached, static,
-                            silhouette_in(m_idx, s_idx), n_mirror,
-                            grazing=True, extrapolate=extrapolate, **curve)
+                        sites.append(_curve_edge_site(
+                            pk, pk_detached, silhouette_in(m_idx, s_idx),
+                            n_mirror, grazing=True, extrapolate=extrapolate,
+                            straddles=straddles, **size))
         for i in sphere_ids:
-            sp = pk.objects[i]
-            s = sphere_silhouette(pk.camera, sp.center, sp.radius, ts)
-            col, row, depth = screen_project(pk.camera, s, height, width)
-
-            # -- detached coefficients -----------------------------------
-            col_d, row_d = col.detach(), row.detach()
-            # the screen tangent by central differences over the closed
-            # circle's samples; a difference spans two samples
-            tx = torch.roll(col_d, -1, 0) - torch.roll(col_d, 1, 0)
-            ty = torch.roll(row_d, -1, 0) - torch.roll(row_d, 1, 0)
-            dl = 0.5 * torch.sqrt(tx * tx + ty * ty)
-            # the outward normal, away from the projected center
-            ccol, crow, _ = screen_project(pk.camera, _detach(sp.center),
-                                           height, width)
-            nx, ny = ty, -tx
-            nlen = torch.sqrt(nx * nx + ny * ny) + 1e-12
-            nx, ny = nx / nlen, ny / nlen
-            flip = torch.sign((col_d - ccol) * nx + (row_d - crow) * ny)
-            nx, ny = nx * flip, ny * flip
-
-            in_front = depth.detach() > 0.0
-            df = _edge_radiance_delta(pk_detached, static, col_d, row_d,
-                                      (nx, ny), height, width, seed, n_noise,
-                                      delta_px, max_bounces)
-            if extrapolate:
-                # the inside ray grazes the sphere ~√δ from the rim:
-                # Δf(δ) = Δf(0) + a·√δ + O(δ), so 2·Δf(δ/4) − Δf(δ)
-                df_q = _edge_radiance_delta(pk_detached, static, col_d,
-                                            row_d, (nx, ny), height, width,
-                                            seed, n_noise, delta_px / 4.0,
-                                            max_bounces)
-                df = df_q * 2.0 - df
-
-            # the loss adjoint at the edge pixel (box filter: floor gather)
-            pi = _pixel_index(row_d, height)
-            pj = _pixel_index(col_d, width)
-            inside_img = ((row_d >= 0) & (row_d < height) & (col_d >= 0)
-                          & (col_d < width) & in_front)
-            coeff = torch.where(inside_img,
-                                _gather(dL, df, pi, pj) * dl, 0.0)
-
-            # -- live: the edge's screen position ---------------------------
-            total = total + torch.sum(coeff * (nx * col + ny * row))
+            sites.append(_sphere_edge_site(pk, i, ts, extrapolate=extrapolate,
+                                           straddles=straddles, **size))
+        straddles.trace()
+        total = torch.zeros((), dtype=params.dtype, device=params.device)
+        for finish in sites:
+            total = total + finish(dL)
         return total
 
     return _edge_grad(edge_scalar, params, static)
@@ -982,7 +1092,10 @@ def indirect_silhouette_term(params: torch.Tensor, static, d_loss_d_image,
     the arc element sinβ·2π/K and Δf = L(β−δ) − L(β+δ) from straddle pairs
     traced from x with common random numbers (the 2·Δf(δ/4) − Δf(δ)
     extrapolation, as the inside ray grazes).  The scalar is Σ coeff ·
-    (n̂·ω_live) with n̂ = ∂ω/∂β.  A flat tensor like `params`."""
+    (n̂·ω_live) with n̂ = ∂ω/∂β.  A flat tensor like `params`.  Each
+    `trace_rays` call here already holds K·H·W rays, so its calls are not
+    batched as `boundary_term`'s are: a batch would multiply memory that
+    is already the image's times K."""
     dL = _adjoint(d_loss_d_image, params)
     sphere_ids = _categories(static, (C.SPHERE,))
     if not sphere_ids:

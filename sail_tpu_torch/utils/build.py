@@ -7,6 +7,9 @@ and every `csrc/` header it includes (`#include "..."`, followed
 recursively), so an edited source or header rebuilds and a stale library is
 never loaded.  `build(*names)` starts one nvcc per library at once.  There
 is no fallback: without nvcc the build raises.
+
+`load_host` builds a C++ source of the repository for the host the same
+way, with g++, into `<repo>/build/native/` (the native image codec).
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ import threading
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
+REPO_DIR = os.path.dirname(PACKAGE_DIR)
+BUILD_DIR = os.path.join(REPO_DIR, "build", "kernels")
+HOST_BUILD_DIR = os.path.join(REPO_DIR, "build", "native")
 
 # Hopper only (`sm_90a`).  -fmad=false: the plain torch version never
 # contracts a*b+c, and pixels on a geometric edge flip on one ulp.
@@ -105,6 +110,41 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(build(name)[0])
         return _loaded[name]
+
+
+# `native/Makefile`'s flags but -march=native: the library's arithmetic is
+# then the same on every x86-64 host (no contracted multiply-adds).
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-Wall")
+
+
+def load_host(source: str, link: tuple = ()) -> ctypes.CDLL:
+    """Build (if needed) and load a C++ source of the repository as a
+    shared library for the host: g++ with HOST_FLAGS and `link` into
+    HOST_BUILD_DIR, the file name carrying a hash of the flags and the
+    source, under the kernels' lock, once per process.  Raises if g++ is
+    missing or fails."""
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(" ".join(HOST_FLAGS + tuple(link)).encode()
+                                + f.read()).hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(source))[0]
+    lib = os.path.join(HOST_BUILD_DIR, f"lib{stem}-{digest}.so")
+    with _lock:
+        if lib not in _loaded:
+            if not os.path.exists(lib):
+                cxx = shutil.which("g++")
+                if cxx is None:
+                    raise RuntimeError(f"g++ not found: {source} needs a C++ "
+                                       f"compiler")
+                os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+                tmp = f"{lib}.{os.getpid()}.tmp"
+                proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, source,
+                                       *link], capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed ({proc.returncode}) "
+                                       f"building {source}:\n{proc.stderr}")
+                os.replace(tmp, lib)
+            _loaded[lib] = ctypes.CDLL(lib)
+        return _loaded[lib]
 
 
 def kernel_name(symbol: str) -> str:

@@ -1,6 +1,7 @@
 """Image output helpers, PPM and PNG (port of `sail_tpu/utils/imageio.py`;
-numpy and zlib).  The PNG encoder is the Python one: the same bytes as the
-JAX package's Python encoder."""
+numpy and zlib).  `png_bytes` takes the native codec (`utils/native.py`)
+where it builds, as the JAX package does, and the Python encoder (the
+same bytes as the JAX package's) on a host without g++."""
 from __future__ import annotations
 
 import struct
@@ -25,7 +26,12 @@ def write_ppm(path: str, img: np.ndarray, gamma: float = 2.2):
 
 
 def png_bytes(img: np.ndarray, gamma: float = 2.2) -> bytes:
-    """PNG bytes (8-bit RGB, zlib level 6) of a float HDR image."""
+    """PNG bytes (8-bit RGB, zlib level 6) of a float HDR image: the
+    native codec's tone map and encoder where it builds, else `to_uint8`
+    and the Python encoder."""
+    from . import native
+    if native.available():
+        return native.png_bytes(np.asarray(img, np.float32), gamma)
     return _png_bytes_py(to_uint8(img, gamma))
 
 

@@ -121,9 +121,15 @@ def _img(seed, h=13, w=17):
 
 
 @pytest.mark.parametrize("gamma", [2.2, 1.0])
-def test_png_bytes_equal_jax_python_encoder(gamma, tmp_path):
+def test_png_bytes_equal_jax_python_encoder(gamma, tmp_path, monkeypatch):
+    """On a host without the native codec (g++), `png_bytes` and
+    `write_png` give the JAX package's Python encoder's bytes; where it
+    builds they take it, as JAX's do (tests/test_torch_native.py)."""
+    from sail_tpu_torch.utils import native
+    monkeypatch.setattr(native, "available", lambda: False)
     img = _img(0)
     want = jimageio._png_bytes_py(jimageio.to_uint8(img, gamma))
+    assert imageio._png_bytes_py(imageio.to_uint8(img, gamma)) == want
     assert imageio.png_bytes(img, gamma) == want
     np.testing.assert_array_equal(imageio.to_uint8(img, gamma),
                                   jimageio.to_uint8(img, gamma))

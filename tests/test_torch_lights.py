@@ -30,11 +30,11 @@ import pytest
 import torch
 
 import sail_tpu as jsail
+import sail_tpu_torch as tsail
 from sail_tpu import constants as JC
 from sail_tpu import scenes as jscenes
 from sail_tpu.core import samplers as jsamplers
 from sail_tpu.ops import lights as jlights
-from sail_tpu.oracle import cpu_tracer as oracle
 from sail_tpu_torch import constants as C
 from sail_tpu_torch import scenes as tscenes
 from sail_tpu_torch.core import samplers
@@ -42,6 +42,7 @@ from sail_tpu_torch.core.rng import PixelNoise
 from sail_tpu_torch.core.vecmath import Vec3
 from sail_tpu_torch.ops import lights as tlights
 from sail_tpu_torch.ops.cuda import megakernel as mk
+from sail_tpu_torch.oracle import cpu_tracer as oracle
 from sail_tpu_torch.render import integrator
 from sail_tpu_torch.scene.bridge import params_from_jax_leaves, static_from_jax
 from sail_tpu_torch.scene.scene import unflatten
@@ -202,13 +203,14 @@ def test_port_scenes_pack_as_jax_scenes(name):
         assert (obj == -1) == (cat != C.AREA)
 
 
-def _oracle_twin(jscene, h, w, bounces, atol=2e-3, rtol=2e-3):
+def _oracle_twin(scene, h, w, bounces, atol=2e-3, rtol=2e-3):
     """tests/test_oracle_parity.py's `run_parity` through the port: the
-    same uniforms (`rand_override`) against the numpy oracle."""
-    _, _, params, static = _bridge(jscene)
-    rand = make_rand((h, w), len(jscene.lights), bounces, 0)
-    ro_np, rd_np = oracle.camera_rays(jscene.camera, h, w)
-    want = oracle.trace(jscene, ro_np, rd_np, rand, max_bounces=bounces)
+    same uniforms (`rand_override`) against the port's numpy oracle, on a
+    scene of the port's classes."""
+    params, static = scene.pack()
+    rand = make_rand((h, w), len(scene.lights), bounces, 0)
+    ro_np, rd_np = oracle.camera_rays(scene.camera, h, w)
+    want = oracle.trace(scene, ro_np, rd_np, rand, max_bounces=bounces)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     ro = Vec3(*(t(ro_np[..., k]) for k in range(3)))
     rd = Vec3(*(t(rd_np[..., k]) for k in range(3)))
@@ -225,7 +227,7 @@ def _oracle_twin(jscene, h, w, bounces, atol=2e-3, rtol=2e-3):
 
 def test_oracle_parity_cube_area_light():
     """The per-face cube sampler against the oracle's twin."""
-    s = jsail
+    s = tsail
     scene = s.Scene()
     scene.add(s.Camera((0.0, 0.0, -2.5), (0.0, 0.0, 0.0)))
     scene.add(s.Cornellbox((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0)))
@@ -262,7 +264,7 @@ def test_area_light_geometry_acceptance():
 def test_oracle_parity_lights_and_quadrics_small():
     """Config 4 at 16² x 3 bounces against the oracle at its default
     (tight) tolerances: the quadrics and the point and spot paths."""
-    img = _oracle_twin(jscenes.lights_and_quadrics(), 16, 16, 3)
+    img = _oracle_twin(tscenes.lights_and_quadrics(), 16, 16, 3)
     assert img.mean() > 0.01
 
 

@@ -28,13 +28,13 @@ import torch
 from sail_tpu import scenes as jscenes
 from sail_tpu.core.camera import rays_for_pixels as jrays
 from sail_tpu.core.rng import pixel_noise
-from sail_tpu.oracle import cpu_tracer as oracle
 from sail_tpu.render import integrator as jintegrator
 import sail_tpu_torch
 from sail_tpu_torch import scenes as tscenes
 from sail_tpu_torch.core.rng import PixelNoise
 from sail_tpu_torch.core.vecmath import Vec3
 from sail_tpu_torch.ops.cuda import megakernel as mk
+from sail_tpu_torch.oracle import cpu_tracer as oracle
 from sail_tpu_torch.render import integrator
 from sail_tpu_torch.scene.bridge import params_from_jax_leaves, static_from_jax
 from sail_tpu_torch.scene.scene import unflatten
@@ -94,13 +94,14 @@ def test_golden_config3():
 
 
 def test_oracle_parity_material_demo_small():
-    """Config 3 shrunk, against the numpy oracle on identical uniforms."""
-    jscene = jscenes.material_demo()
-    _, _, params, static = _bridge(jscene)
+    """Config 3 shrunk, against the port's numpy oracle on identical
+    uniforms."""
+    scene = tscenes.material_demo()
+    params, static = scene.pack()
     h = w = 10
-    rand = make_rand((h, w), len(jscene.lights), 3, 0)
-    ro_np, rd_np = oracle.camera_rays(jscene.camera, h, w)
-    want = oracle.trace(jscene, ro_np, rd_np, rand, max_bounces=3)
+    rand = make_rand((h, w), len(scene.lights), 3, 0)
+    ro_np, rd_np = oracle.camera_rays(scene.camera, h, w)
+    want = oracle.trace(scene, ro_np, rd_np, rand, max_bounces=3)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     ro = Vec3(*(t(ro_np[..., k]) for k in range(3)))
     rd = Vec3(*(t(rd_np[..., k]) for k in range(3)))
