@@ -13,8 +13,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (csrc/megakernel_grad_lights.cu, two kinds each), the profiling
      kernels
      (csrc/profile.cu: K5a, K5b, K5c, K1 with each of four phases
-     stripped) and K2's stripped builds (csrc/profile_grad.cu), one nvcc
-     each, started together, and reports each kernel's registers, stack,
+     stripped), K2's stripped builds (csrc/profile_grad.cu), KR
+     (csrc/trace_rays.cu) and KP (csrc/penumbra.cu), one nvcc each,
+     started together, and reports each kernel's registers, stack,
      spills and static shared memory (nvcc -Xptxas -v): K1's per build,
      render_block_kernel<ALL, CULL, MATS, STRIP>.
   2. kernel vs plain on the card: K1 against its plain torch version on the
@@ -142,17 +143,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
      on a 16 x 16 grid of pixels.
  12. inverse rendering (BASELINE config 5, cornell_mirror perturbed) at
      1024² x 16 spp x 4 bounces: the target through one K1 launch, five
-     train steps with the edge terms, each one K1, one K2 and one reduce
-     launch and one trace_rays call (the silhouette term's straddle rays
-     in one batch), the loss falling, timed on the host clock and by CUDA
-     events; the kernels a step with and without the edge terms
-     (torch.profiler, utils/metrics.profile_trace); the split: the
+     train steps with the edge terms, each one K1, one K2, one KR (the
+     silhouette term's straddle rays in one batch, csrc/trace_rays.cu),
+     one KP (the penumbra term and its adjoint, csrc/penumbra.cu) and two
+     reduce launches (K2's and KP's rows) and no call of the plain
+     integrator's trace_rays, the loss falling, timed on the host clock
+     and by CUDA events; the kernels a step with and without the edge
+     terms (torch.profiler, utils/metrics.profile_trace); the split: the
      silhouette term (its trace_rays call and its bisections), the
      penumbra term, the step without them; the batched silhouette term
      against the same sites traced one by one (within 1e-6 of the largest
-     leaf); the interior gradient K2's bit for bit, K1 and K2 against
-     their plain versions on a row tile, the edge terms on the card
-     against the CPU at 64², a central difference.
+     leaf); KR against the plain trace_rays on the step's straddle rays
+     bit for bit, and KP's penumbra term against the plain version's per
+     leaf (within 1e-4 of the largest leaf), each timed; the interior
+     gradient K2's bit for bit, K1 and K2 against their plain versions on
+     a row tile, the edge terms on the card against the CPU at 64², a
+     central difference.
  13. the multi-device parallel/ on the one card: (a) render_sharded
      (cornell_mirror, 1024² x 64 x 5) over make_mesh(8, spp_axis=2) of
      ranks on cuda:0 through exactly 8 K1 launches, within relative 1e-5
@@ -164,9 +170,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      config 5's train step at 1024² x 16 x 4 over 2 ranks: without the
      edge terms (2, 2, 2) K1/K2/reduce launches a step, the gradient
      within relative 1e-5 and the loss 1e-6 of the one-rank step's; with
-     them 3 steps timed; (d) NCCL at world size 1 (a tcp://127.0.0.1 free
-     port): (a)'s render through the collectives bit for bit, then the
-     process group destroyed.
+     them 3 steps timed, each one KR and one KP launch a rank; (d) NCCL
+     at world size 1 (a tcp://127.0.0.1 free port): (a)'s render through
+     the collectives bit for bit, then the process group destroyed.
  14. the last modules: tools/gpu_checks.py on the card (K1 bit for bit, K2
      against autograd through the plain version, the one-rank sharded
      render and gradient; its JSON line), the native image codec built
@@ -174,7 +180,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      a 256² viewer frame of examples/viewer.py by part (K1, output, PNG)
      served to a localhost request, examples/render_scenes.py at 64² x 4
      on each of its scenes and examples/inverse_render.py for 3 steps at
-     64², their launches counted.
+     64², their launches counted (a step of the latter: one K1, K2, KR
+     and KP, two reduces).
 Every kernel's bound is computed from this run's inputs: the FP32
 operations the plain version's masks say these paths need
 (sail_tpu_torch/utils/opcount.py) over 67 TFLOP/s, or the bytes over
@@ -263,6 +270,11 @@ INV_STEPS = 5
 INV_LR = 0.025
 BND_CHECK = 64
 BND_RTOL, BND_ATOL = 1e-4, 1e-4
+# KP's penumbra term against the plain version's on the card, per leaf:
+# |diff| <= KP_TOL·max|plain| (the same float32 operations for the
+# coefficients; the adjoint written out against autograd's, each summed in
+# its own order: tests/test_torch_edge_kernels.py)
+KP_TOL = 1e-4
 FD_EPS = 1e-2
 # the batched silhouette term against the same sites traced one by one:
 # |diff| <= BATCH_TOL·max|per-site| (the same float32 operations on the same
@@ -1766,16 +1778,17 @@ def host_ms(fn, *args, runs: int = 1, **kw):
 
 class CallPatch:
     """`module.name` replaced by a wrapper until `restore()`: `calls`
-    counts its calls; with `parts`, each call is also timed to a
-    synchronize on both sides into `parts[name]` (calls, ms, and for
-    trace_rays the rays)."""
+    counts its calls and `args` keeps each call's positional arguments;
+    with `parts`, each call is also timed to a synchronize on both sides
+    into `parts[name]` (calls, ms, and for trace_rays the rays)."""
 
     def __init__(self, module, name: str, parts: dict = None):
-        self.module, self.name, self.calls = module, name, 0
+        self.module, self.name, self.calls, self.args = module, name, 0, []
         self.fn = fn = getattr(module, name)
 
         def wrapper(*args, **kw):
             self.calls += 1
+            self.args.append(args)
             if parts is None:
                 return fn(*args, **kw)
             torch.cuda.synchronize()
@@ -2011,6 +2024,157 @@ def display_path(dev, card: str) -> list:
     return []
 
 
+def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0),
+                 on: str = None) -> tuple:
+    """KR and KP at config 5's step inputs (`q`, the loss adjoint `dL`, the
+    step's edge settings): KR against the plain integrator's trace_rays on
+    the silhouette term's straddle rays bit for bit; KP's penumbra term
+    (shadow_boundary_term) against the plain version's on the card per leaf
+    within KP_TOL of the largest leaf, and its partials in the receiver
+    points too; each timed beside its plain version, its bound from these
+    inputs.  `launches`: each kernel's launches in the main path's run.
+    Returns (summary, the two kernels' entries).  Raises."""
+    from sail_tpu_torch.core.vecmath import Vec3
+    from sail_tpu_torch.diff import boundary
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.ops.cuda import penumbra as kp
+    from sail_tpu_torch.render import integrator
+    from sail_tpu_torch.scene.scene import leaf_paths, unflatten
+    from sail_tpu_torch.tools.k2_compare import queued_ms
+    from sail_tpu_torch.utils import opcount
+
+    # -- KR: the silhouette term's one trace_rays call ----------------------
+    sil_kw = {k: edge_kw[k] for k in ("n_edge_samples", "n_noise", "seed",
+                                      "max_bounces")}
+    tap = CallPatch(boundary, "trace_rays")
+    try:
+        boundary.boundary_term(q, static, dL, n, n, **sil_kw)
+    finally:
+        tap.restore()
+    (kr_args,) = tap.args
+    pp, st, ro, rd, noise, mb = kr_args
+
+    def plain_rays():
+        return integrator.trace_rays(unflatten(pp, st), st, ro, rd, noise, mb)
+
+    got, kr_call_ms = cuda_ms(mk.trace_rays, *kr_args)
+    want, kr_plain_ms = cuda_ms(plain_rays)
+    got, want = got.stack(), want.stack()
+    kr_err = float((got - want).abs().max())
+    n_rays = got.numel() // 3
+    if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"KR is not the plain trace_rays bit for bit on "
+                             f"config 5's {n_rays} straddle rays: max_abs "
+                             f"{kr_err:.3g}")
+    kr_ms = queued_ms(mk.trace_rays, *kr_args, runs=TIMED_RUNS)
+    kr_plain_ms = min(kr_plain_ms, cuda_ms(plain_rays)[1])
+    kr_ops = opcount.ray_ops(pp, st, ro, rd, noise, mb)
+    kr_b = dict(zip(("bound_ms", "bound_by"),
+                    opcount.bound_ms(kr_ops, 44 * n_rays)))
+
+    # -- KP: the penumbra term ------------------------------------------------
+    pen_kw = dict(n_curve_samples=edge_kw["n_curve_samples"],
+                  seed=edge_kw["seed"])
+    tap = CallPatch(kp, "penumbra_scalar")
+    try:
+        boundary.shadow_boundary_term(q, static, dL, n, n, **pen_kw)
+    finally:
+        tap.restore()
+    (kp_args,) = tap.args
+    kernel_scalar = kp.penumbra_scalar
+    kp.penumbra_scalar = kp.penumbra_scalar_plain
+    try:
+        g_plain, term_plain_ms = host_ms(boundary.shadow_boundary_term, q,
+                                         static, dL, n, n, **pen_kw)
+    finally:
+        kp.penumbra_scalar = kernel_scalar
+    g_kp, term_ms = host_ms(boundary.shadow_boundary_term, q, static, dL, n,
+                            n, runs=3, **pen_kw)
+    d = (g_kp - g_plain).abs()
+    top = float(g_plain.abs().max())
+    worst = int(d.argmax())
+    paths = leaf_paths(static)
+    kp_text = (f"penumbra term at {n}x{n} (K {pen_kw['n_curve_samples']}), "
+               f"KP vs plain: max |diff| {float(d.max()):.3g} = "
+               f"{float(d.max()) / top:.3g} of the largest leaf "
+               f"({top:.4g}), worst leaf {paths[worst]} plain "
+               f"{float(g_plain[worst]):.6g} KP {float(g_kp[worst]):.6g}")
+    if not (float(d.max()) <= KP_TOL * top and top > 0
+            and bool(torch.isfinite(g_kp).all())):
+        raise AssertionError(f"KP disagrees with its plain version: "
+                             f"{kp_text}")
+    # the kernel alone on the inputs the step gave it, and the plain
+    # version of the same function: the scalar and autograd's partials
+    pk, pk_d, st, dl_, recv, x_live, pairs, K = kp_args
+    ids, inputs = kp.pack_inputs(pk_d, st, dl_, recv, pairs, K)
+    spheres = torch.stack([torch.stack((*pk_d.objects[i].center,
+                                        pk_d.objects[i].radius))
+                           for i in ids]).contiguous()
+    xs = torch.stack([x_live[rc.tag].stack(0).detach()
+                      for rc in recv]).contiguous()
+    (_, _, gx_kp), _ = cuda_ms(kp.penumbra_partials, spheres, xs, inputs)
+    kp_ms = median_ms(kp.penumbra_partials, spheres, xs, inputs)
+
+    def plain_partials():
+        p = q.detach().clone().requires_grad_()
+        xl = xs.clone().requires_grad_()
+        live = {rc.tag: Vec3(*xl[r]) for r, rc in enumerate(recv)}
+        value = kp.penumbra_scalar_plain(unflatten(p, st), pk_d, st, dl_,
+                                         recv, live, pairs, K)
+        return torch.autograd.grad(value, (p, xl))
+
+    (_, gx_plain), kp_plain_ms = cuda_ms(plain_partials)
+    gx_err = float((gx_kp - gx_plain).abs().max())
+    gx_top = float(gx_plain.abs().max())
+    if not gx_err <= KP_TOL * gx_top:
+        raise AssertionError(f"KP's gradient in the receiver points is "
+                             f"{gx_err:.3g} off autograd's (max "
+                             f"{gx_top:.3g})")
+    tally = {}
+    with torch.no_grad():
+        kp.penumbra_scalar_plain(pk_d, pk_d, st, dl_, recv, x_live, pairs, K,
+                                 tally=tally)
+    kp_bytes = 4 * (2 * xs.numel() + inputs.planes.numel()
+                    + inputs.ints.numel() + inputs.dl.numel())
+    kp_b = dict(zip(("bound_ms", "bound_by"), opcount.bound_ms(
+        opcount.penumbra_ops(tally, K), kp_bytes)))
+
+    shape = f"cornell_mirror {n}x{n} (config 5's step)"
+    summary = (f"KR vs the plain trace_rays on the step's {n_rays} straddle "
+               f"rays ({mb} bounces): bit-identical, KR {kr_ms:.4f} ms a "
+               f"launch queued ({kr_call_ms:.3f} ms a call), plain "
+               f"{kr_plain_ms:.1f} ms, bound {kr_b['bound_ms']:.4f} ms | "
+               f"{kp_text}; in the receiver points {gx_err:.3g} of "
+               f"{gx_top:.3g}; KP (with its reduce) {kp_ms:.3f} ms, the "
+               f"plain version's partials {kp_plain_ms:.1f} ms, bound "
+               f"{kp_b['bound_ms']:.4f} ms ({tally['units']} receiver pixel-"
+               f"spheres, {tally['valid']} samples lighting their "
+               f"receiver); the whole penumbra term {term_ms:.1f} ms, "
+               f"{term_plain_ms:.1f} ms with the plain version")
+    no_tpu = ("no TPU kernel: XLA under jax.jit "
+              "(sail_tpu/parallel/render_sharded.py:257)")
+    rows = [
+        kernel_row("KR trace_rays (config 5's straddle rays)",
+                   "sail_tpu_torch/csrc/trace_rays.cu + render_block.cuh + "
+                   "path.cuh", no_tpu, launches[0], kr_err, kr_ms,
+                   kr_plain_ms, kr_b, f"{n_rays} rays x {mb} bounces, "
+                   + shape, call_ms=kr_call_ms, launches_counted_on=on,
+                   timing="ms: per launch, queued behind a sleeping kernel; "
+                   "call_ms: one call between events; plain_ms: the plain "
+                   "integrator's trace_rays, one call"),
+        kernel_row("KP penumbra_partials (config 5's penumbra term)",
+                   "sail_tpu_torch/csrc/penumbra.cu + penumbra.cuh",
+                   no_tpu, launches[1], float(d.max()), kp_ms, kp_plain_ms,
+                   kp_b, f"{len(recv)} receivers x {len(pairs)} pairs x "
+                   f"K {K}, " + shape, launches_counted_on=on,
+                   term_ms=term_ms, term_plain_ms=term_plain_ms,
+                   timing="ms: penumbra_partials (KP and the reduce of its "
+                   "block rows) between events, median; plain_ms: the plain "
+                   "version's scalar and autograd's partials, one call; "
+                   "max_abs_err: the penumbra term per leaf")]
+    return summary, rows
+
+
 def inverse_path(dev, card: str) -> list:
     """Phase 12: BASELINE config 5 at 1024² x 16 spp x 4 bounces, boundary
     on.  The target through one K1 launch, then INV_STEPS train steps from
@@ -2018,7 +2182,8 @@ def inverse_path(dev, card: str) -> list:
     launch, the loss falling; the step's time, the edge terms' share and
     the peak memory; the step's interior gradient K2's at the same
     cotangent bit for bit, K1 and K2 against their plain versions on a row
-    tile; full_boundary_term on the card against the CPU; a central
+    tile; KR and KP against their plain versions (`edge_kernels`);
+    full_boundary_term on the card against the CPU; a central
     difference of the matte sphere's center.x beside the interior and
     boundary terms (printed, not held).  Returns the kernels' entries."""
     from sail_tpu_torch import scenes
@@ -2031,7 +2196,9 @@ def inverse_path(dev, card: str) -> list:
     from sail_tpu_torch.diff.inverse import finite_difference_grad
     from sail_tpu_torch.utils import metrics
     from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.ops.cuda import penumbra as kp
     from sail_tpu_torch.parallel import render_sharded as rs
+    from sail_tpu_torch.render import integrator
     from sail_tpu_torch.parallel.mesh import make_mesh
     from sail_tpu_torch.scene.scene import leaf_paths
     from sail_tpu_torch.tools import grad_localise
@@ -2049,11 +2216,13 @@ def inverse_path(dev, card: str) -> list:
 
     def counts():
         return (mk.render_block.launches, mk.render_grad_block.launches,
-                mk.reduce_grad_rows.launches)
+                mk.reduce_grad_rows.launches, mk.trace_rays.launches,
+                kp.penumbra_partials.launches)
 
     def zero():
         mk.render_block.launches = mk.render_grad_block.launches = 0
-        mk.reduce_grad_rows.launches = 0
+        mk.reduce_grad_rows.launches = mk.trace_rays.launches = 0
+        kp.penumbra_partials.launches = 0
 
     # -- the main path: the target, then the train steps ---------------------
     zero()
@@ -2061,8 +2230,8 @@ def inverse_path(dev, card: str) -> list:
         target = rs.render_sharded(params, static, mesh, n, n, spp,
                                    max_bounces=bounces)
     torch.cuda.synchronize()
-    if counts() != (1, 0, 0):
-        raise AssertionError(f"the target made {counts()} K1/K2/reduce "
+    if counts() != (1, 0, 0, 0, 0):
+        raise AssertionError(f"the target made {counts()} K1/K2/reduce/KR/KP "
                              f"launches, not one K1")
     p = start.to(dev, copy=True).requires_grad_()
     opt = torch.optim.Adam([p], lr=INV_LR)
@@ -2073,6 +2242,7 @@ def inverse_path(dev, card: str) -> list:
     torch.cuda.reset_peak_memory_stats(dev)
     losses, step_ms, step_ev_ms, per_step = [], [], [], []
     traced = CallPatch(boundary, "trace_rays")
+    plain_traced = CallPatch(integrator, "trace_rays")
     for _ in range(INV_STEPS):
         before = counts()
         ev0 = torch.cuda.Event(enable_timing=True)
@@ -2087,15 +2257,18 @@ def inverse_path(dev, card: str) -> list:
         step_ev_ms.append(ev0.elapsed_time(ev1))
         per_step.append(tuple(a - b for a, b in zip(counts(), before)))
     traced.restore()
+    plain_traced.restore()
     launches = counts()
-    if traced.calls != INV_STEPS:
+    if traced.calls != INV_STEPS or plain_traced.calls:
         raise AssertionError(f"{INV_STEPS} train steps made {traced.calls} "
                              f"trace_rays calls in the edge terms, not one "
-                             f"a step")
+                             f"a step, and {plain_traced.calls} calls of the "
+                             f"plain integrator's, not none")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-    if any(c != (1, 1, 1) for c in per_step):
-        raise AssertionError(f"the train steps made {per_step} K1/K2/reduce "
-                             f"launches, not one each a step")
+    if any(c != (1, 1, 2, 1, 1) for c in per_step):
+        raise AssertionError(f"the train steps made {per_step} "
+                             f"K1/K2/reduce/KR/KP launches, not one each a "
+                             f"step and two reduces (K2's and KP's)")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
             and torch.isfinite(p.detach()).all()):
         raise AssertionError(f"the loss did not fall or is not finite: "
@@ -2201,6 +2374,10 @@ def inverse_path(dev, card: str) -> list:
     k1_ms = median_ms(mk.render_block, q, static, n, n, spp, 0, 0, bounces)
     bx, by = mk.grad_limits()["block"]
     red = reduce_check(dev, (-(-n // bx) * -(-n // by), q.numel()))
+    on = "config 5's target and train steps"
+    # -- KR and KP against their plain versions at the step's inputs --------
+    edge_text, edge_rows = edge_kernels(q, static, dL, n, edge_kw,
+                                        launches[3:], on)
 
     # -- the edge terms on the card against the CPU, on the same inputs ------
     m = BND_CHECK
@@ -2270,12 +2447,12 @@ def inverse_path(dev, card: str) -> list:
           f"worst {where['leaf_name']} = {where['excess']:.3g} of its bound; "
           f"plain {k2_plain_ms:.1f} ms | K1 vs plain on the tile: max_abs "
           f"{k1_err:.3g}, {'bit-identical' if k1_bit else 'not bit-identical'}"
-          f", plain {k1_plain_ms:.1f} ms | {bnd_text} | center.x: central "
+          f", plain {k1_plain_ms:.1f} ms | {edge_text} | {bnd_text} | "
+          f"center.x: central "
           f"difference (eps {FD_EPS:g}) {fd:.6g}, interior {g_int:.6g} + "
           f"boundary {g_bnd:.6g} = {g_int + g_bnd:.6g} | {card}", flush=True)
 
     shape = f"cornell_mirror {n}x{n} spp{spp} b{bounces} (config 5)"
-    on = "config 5's target and train steps"
     k1_b = bound(q, static, n, n, spp, bounces, samples=1, row_step=32)
     k2_b = bound(q, static, n, n, spp, bounces, grad=True, samples=1,
                  row_step=32)
@@ -2299,10 +2476,10 @@ def inverse_path(dev, card: str) -> list:
                    reduce_bound(red), f"{red['shape'][0]} rows x "
                    f"{red['shape'][1]} params (config 5's step)",
                    library_ms=red["sum_ms"], call_ms=red["call_ms"],
-                   launches_counted_on=on,
+                   launches_counted_on=on + " (K2's rows and KP's)",
                    timing="ms, plain_ms, library_ms: per launch, queued "
                    "behind a sleeping kernel; call_ms: one call between "
-                   "events")]
+                   "events")] + edge_rows
 
 
 def multi_device_path(dev, card: str) -> list:
@@ -2324,6 +2501,7 @@ def multi_device_path(dev, card: str) -> list:
     from sail_tpu_torch.core.vecmath import Vec3
     from sail_tpu_torch.diff.boundary import mse_adjoint
     from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.ops.cuda import penumbra as kp
     from sail_tpu_torch.parallel import render_sharded as rs
     from sail_tpu_torch.parallel.elastic import DeviceFailure, ElasticRenderer
     from sail_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
@@ -2457,13 +2635,20 @@ def multi_device_path(dev, card: str) -> list:
                                 trainable=rs.trainable_mask(static,
                                                             ia.trainable))
     b_losses, b_ms = [], []
+    edge0 = (mk.trace_rays.launches, kp.penumbra_partials.launches)
     for _ in range(MESH_STEPS):
         loss, ms = host_ms(step_b, target)
         b_losses.append(float(loss))
         b_ms.append(ms)
+    edge_launches = (mk.trace_rays.launches - edge0[0],
+                     kp.penumbra_partials.launches - edge0[1])
     if not (all(np.isfinite(b_losses)) and torch.isfinite(pb).all()):
         raise AssertionError(f"config 5's 2-rank steps with the edge terms: "
                              f"losses {b_losses}")
+    if edge_launches != (MESH_STEPS * MESH5[0],) * 2:
+        raise AssertionError(f"config 5's {MESH_STEPS} 2-rank steps made "
+                             f"{edge_launches} KR/KP launches, not one each "
+                             f"a rank and step")
     # the step's kernels per rank: K2 on each rank's rows at the step's
     # cotangent, the reduce of a rank's rows, the plain K2 on a row tile
     with torch.no_grad():
@@ -2537,7 +2722,8 @@ def multi_device_path(dev, card: str) -> list:
           f"ranks {k2_ms:.2f} ms, one launch {k2_one_ms:.2f} ms; K2 vs plain:"
           f" {k2_text}, plain {k2_plain_ms:.1f} ms; with the edge terms "
           f"losses {' '.join(f'{x:.6g}' for x in b_losses)}, steps "
-          f"{' '.join(f'{x:.1f}' for x in b_ms)} ms | (d) NCCL world size 1 "
+          f"{' '.join(f'{x:.1f}' for x in b_ms)} ms, {edge_launches} KR/KP "
+          f"launches in {MESH_STEPS} steps | (d) NCCL world size 1 "
           f"(init {init_s:.2f} s): {nccl_launches[0]} K1 launches, the image "
           f"bit-identical to (a)'s, {nccl_ms:.2f} ms | {card}", flush=True)
 
@@ -2608,7 +2794,7 @@ def tools_path(dev, card: str) -> list:
     examples/viewer.py timed by part and served to a localhost request;
     examples/render_scenes.py at EXAMPLE_SHAPE on every scene it knows and
     examples/inverse_render.py for INVERSE_EXAMPLE steps, their K1/K2/
-    reduce launches counted.  Returns no kernel entry."""
+    reduce/KR/KP launches counted.  Returns no kernel entry."""
     import contextlib
     import io
     import threading
@@ -2618,16 +2804,19 @@ def tools_path(dev, card: str) -> list:
     from sail_tpu_torch import scenes
     from sail_tpu_torch.examples import inverse_render, render_scenes, viewer
     from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.ops.cuda import penumbra as kp
     from sail_tpu_torch.tools import gpu_checks
     from sail_tpu_torch.utils import imageio, native
 
     def counts():
         return (mk.render_block.launches, mk.render_grad_block.launches,
-                mk.reduce_grad_rows.launches)
+                mk.reduce_grad_rows.launches, mk.trace_rays.launches,
+                kp.penumbra_partials.launches)
 
     def zero():
         mk.render_block.launches = mk.render_grad_block.launches = 0
-        mk.reduce_grad_rows.launches = 0
+        mk.reduce_grad_rows.launches = mk.trace_rays.launches = 0
+        kp.penumbra_partials.launches = 0
 
     # -- tools/gpu_checks.py, its JSON line printed through -------------------
     size, spp, bounces = GPU_CHECKS
@@ -2709,9 +2898,10 @@ def tools_path(dev, card: str) -> list:
             raise AssertionError(f"render_scenes {name}: bad image")
         scene_text.append(f"{name} {meter.seconds * 1e3:.2f} ms")
     rs_launches = counts()
-    if rs_launches != (2 * len(render_scenes.SCENES), 0, 0):
-        raise AssertionError(f"render_scenes made {rs_launches} K1/K2/reduce "
-                             f"launches, not two K1 a scene")
+    if rs_launches != (2 * len(render_scenes.SCENES), 0, 0, 0, 0):
+        raise AssertionError(f"render_scenes made {rs_launches} "
+                             f"K1/K2/reduce/KR/KP launches, not two K1 a "
+                             f"scene")
 
     # -- examples/inverse_render.py ----------------------------------------
     isize, isteps = INVERSE_EXAMPLE
@@ -2722,10 +2912,12 @@ def tools_path(dev, card: str) -> list:
     inv_s = time.perf_counter() - t0
     inv_launches = counts()
     losses = res["losses"]
-    if inv_launches != (isteps + 3, isteps, isteps) or not (
-            np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError(f"inverse_render made {inv_launches} K1/K2/"
-                             f"reduce launches, losses {losses}")
+    # a step: K1, K2, KR and KP once each, the reduce for K2's rows and
+    # KP's; and three renders
+    if inv_launches != (isteps + 3, isteps, 2 * isteps, isteps, isteps) \
+            or not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"inverse_render made {inv_launches} "
+                             f"K1/K2/reduce/KR/KP launches, losses {losses}")
 
     print(f"phase 14 tools and examples: gpu_checks ok ({checks['config']}: "
           f"K1 bit-identical, K2 rel Linf {checks['grad_rel_linf']:.3g}, "
@@ -2740,7 +2932,8 @@ def tools_path(dev, card: str) -> list:
           f"{', '.join(scene_text)}, {rs_launches[0]} K1 launches | "
           f"inverse_render {isize}x{isize} {isteps} steps: loss "
           f"{' '.join(f'{x:.6g}' for x in losses)}, {inv_launches} "
-          f"K1/K2/reduce launches, {inv_s:.1f} s | {card}", flush=True)
+          f"K1/K2/reduce/KR/KP launches, {inv_s:.1f} s | {card}",
+          flush=True)
     return []
 
 
@@ -2878,7 +3071,7 @@ def main() -> int:
     nvcc = next((ln for ln in nvcc if "release" in ln), nvcc[-1])
     t0 = time.perf_counter()
     sources = ("megakernel", "megakernel_grad", "megakernel_grad_lights",
-               "profile", "profile_grad")
+               "profile", "profile_grad", "trace_rays", "penumbra")
     build.build(*sources)   # one nvcc each, started together
     build_s = time.perf_counter() - t0
     usage = {f"{k} ({src})": v for src in sources
@@ -2909,14 +3102,16 @@ def main() -> int:
                    *(f"render_block_kernel<false, false, false, {b}> "
                      f"(profile)" for b in (1, 2, 4, 8)),
                    *(f"render_grad_kernel<{mk.SHARED_GRAD}, false, false, "
-                     f"{st}, 2, false> (profile_grad)" for st in (1, 3))):
+                     f"{st}, 2, false> (profile_grad)" for st in (1, 3)),
+                   "trace_rays_kernel (trace_rays)",
+                   "penumbra_kernel (penumbra)"):
         if kernel not in usage:
             raise AssertionError(f"no -Xptxas -v report for {kernel}")
     print(card)
     print(f"phase 1 device+build: torch {torch.__version__} cuda "
           f"{torch.version.cuda} | nvcc {nvcc} | {torch.cuda.get_device_name(0)}"
-          f" x{torch.cuda.device_count()} | K1, K2 and the profiling kernels "
-          f"built in {build_s:.1f} s"
+          f" x{torch.cuda.device_count()} | K1, K2, KR, KP and the profiling "
+          f"kernels built in {build_s:.1f} s"
           + "".join(f" | {k}: {u['registers']} registers, {u['stack']} B "
                     f"stack, {u['spill_stores']}/{u['spill_loads']} B spill "
                     f"stores/loads, {u['smem']} B static smem"

@@ -48,6 +48,10 @@ def acos(x):
     return atan2(s, x)
 
 
+def asin(x):
+    return PI_2 - acos(x)
+
+
 def atan(x):
     """One-argument arctangent: the polynomial on |x| <= 1, reflected above."""
     big = torch.abs(x) > 1.0

@@ -1,5 +1,5 @@
 """Monte-Carlo direction and point samplers (port of
-`sail_tpu/core/samplers.py`: the ones the BSDF and the lights use)."""
+`sail_tpu/core/samplers.py`)."""
 from __future__ import annotations
 
 import torch
@@ -24,6 +24,13 @@ def cosine_hemisphere(u1, u2) -> Vec3:
     return Vec3(r * torch.cos(angle), r * torch.sin(angle), z)
 
 
+def uniform_disk(u1, u2):
+    """Uniform point (x, y) on the unit disk (polar mapping)."""
+    r = torch.sqrt(u1)
+    theta = 2.0 * PI * u2
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
 def concentric_disk(u1, u2):
     """Concentric (Shirley) mapping of the unit square onto the unit disk.
     The divisions read a 1e-20 in place of a 0 denominator (where the other
@@ -40,3 +47,17 @@ def concentric_disk(u1, u2):
     x = torch.where(at_origin, 0.0, r * torch.cos(theta))
     y = torch.where(at_origin, 0.0, r * torch.sin(theta))
     return x, y
+
+
+def uniform_cone(u1, u2, cos_theta_max) -> Vec3:
+    """Uniform direction in the +z cone of half-angle acos(cos_theta_max)."""
+    ct = (1.0 - u1) + u1 * cos_theta_max
+    st = torch.sqrt(clip(1.0 - ct * ct, 1e-12))
+    phi = 2.0 * PI * u2
+    return Vec3(torch.cos(phi) * st, torch.sin(phi) * st, ct)
+
+
+def uniform_triangle(u1, u2):
+    """Uniform barycentric coordinates (b0, b1) on a triangle."""
+    su0 = torch.sqrt(u1)
+    return 1.0 - su0, u2 * su0

@@ -122,9 +122,26 @@ def vec3(x, y, z, dtype=torch.float32, device=None) -> Vec3:
                   for v in (x, y, z)))
 
 
+def splat(v, dtype=torch.float32, device=None) -> Vec3:
+    """A Vec3 from a length-3 sequence or a number (a Vec3 as it is), on
+    `device` (the card unless the caller asks for another device)."""
+    if isinstance(v, Vec3):
+        return v
+    if hasattr(v, "__len__"):
+        return vec3(v[0], v[1], v[2], dtype, device)
+    return vec3(v, v, v, dtype, device)
+
+
 def where(c: torch.Tensor, a: Vec3, b: Vec3) -> Vec3:
     return Vec3(torch.where(c, a.x, b.x), torch.where(c, a.y, b.y),
                 torch.where(c, a.z, b.z))
+
+
+def from_stacked(a: torch.Tensor, dim: int = -1) -> Vec3:
+    """A Vec3 of the three slices of `a` along `dim` (length 3): the
+    inverse of `Vec3.stack`."""
+    x, y, z = torch.unbind(a, dim)
+    return Vec3(x, y, z)
 
 
 def lerp(a: Vec3, b: Vec3, t) -> Vec3:
@@ -163,6 +180,13 @@ def ortho(d: Vec3) -> Vec3:
     zx = torch.zeros_like(d.x)
     zz = torch.zeros_like(d.z)
     return where(big, Vec3(d.y, -d.x, zz), Vec3(zx, d.z, -d.y))
+
+
+def onb(n: Vec3) -> tuple[Vec3, Vec3]:
+    """An orthonormal basis (s, t) around the unit normal n."""
+    s = ortho(n).normalize()
+    t = n.cross(s)
+    return s, t
 
 
 def reflect(wo: Vec3, n: Vec3) -> Vec3:

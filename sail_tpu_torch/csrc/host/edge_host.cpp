@@ -1,0 +1,82 @@
+// The edge terms' kernels on the CPU, for tests/test_torch_edge_kernels.py:
+// KR's per-ray loop (render_block.cuh `ray_radiance`, a block of one thread,
+// whose barrier returns its own predicate) and KP's per-pixel term and
+// adjoint (penumbra.cuh `penumbra_pixel`), through the stub cuda_runtime.h.
+// Build with a host compiler, this directory first on the include path and
+// no contraction of multiply-adds (the kernels build -fmad=false), as
+// `utils/build.load_host(source, EDGE_HOST_FLAGS)` does (the tests' fixture):
+//   g++ -O3 -fPIC -shared csrc/host/edge_host.cpp -std=c++17 -ffp-contract=off -I csrc/host
+
+#include <vector>
+
+#include "../penumbra.cuh"
+#include "../render_block.cuh"
+
+// KR's radiance of n rays, host arrays laid out as sail_trace_rays takes
+// them (the table's frames computed here, not staged per block).
+extern "C" int sail_host_trace_rays(const float* params, const int* table, int n_obj, int n_plain,
+                                    int n_groups, int n_mat, int n_tex, int n_light, int cam,
+                                    int n_frames, const float* ro_x, const float* ro_y,
+                                    const float* ro_z, const float* rd_x, const float* rd_y,
+                                    const float* rd_z, const int* sample, const int* ii,
+                                    const int* jj, float* out_x, float* out_y, float* out_z, int n,
+                                    int seed, int max_bounces) {
+  Scene s = make_scene(params, table, n_obj, n_plain, n_groups, n_mat, n_tex, n_light, cam);
+  std::vector<RectFrame> frames((size_t)(n_frames > 0 ? n_frames : 0));
+  stage_frames(s, frames.data(), n_frames, 0, 1);
+  for (int i = 0; i < n; ++i) {
+    V3 e = ray_radiance<true, true>(s, Frames{frames.data(), n_frames}, true, (uint32_t)ii[i],
+                                    (uint32_t)jj[i], (uint32_t)sample[i], (uint32_t)seed,
+                                    max_bounces, V3{ro_x[i], ro_y[i], ro_z[i]},
+                                    V3{rd_x[i], rd_y[i], rd_z[i]});
+    out_x[i] = e.x;
+    out_y[i] = e.y;
+    out_z[i] = e.z;
+  }
+  return 0;
+}
+
+// K1's camera ray of pixel (ii[i], jj[i]) in sample sample[i] (render_pixel's
+// first ray), so that KR can be handed K1's own rays.
+extern "C" int sail_host_camera_rays(const float* params, const int* table, int n_obj,
+                                     int n_plain, int n_groups, int n_mat, int n_tex, int n_light,
+                                     int cam, const int* sample, const int* ii, const int* jj,
+                                     float* ro, float* rd, int n, int seed, int height,
+                                     int width) {
+  Scene s = make_scene(params, table, n_obj, n_plain, n_groups, n_mat, n_tex, n_light, cam);
+  const Camera c = load_camera(s);
+  const float sx_scale = F(2.0 / (double)width), sy_scale = F(2.0 / (double)height);
+  for (int i = 0; i < n; ++i) {
+    float jx, jy, unused, ndc_x, ndc_y, sx, sy;
+    draw3(stream_id((uint32_t)seed, (uint32_t)sample[i], 0, TAG_PIXEL_JITTER), (uint32_t)ii[i],
+          (uint32_t)jj[i], jx, jy, unused);
+    V3 d = normalize(camera_dir(c, (float)jj[i], (float)ii[i], jx, jy, sx_scale, sy_scale, ndc_x,
+                                ndc_y, sx, sy));
+    ro[3 * i] = c.eye.x;
+    ro[3 * i + 1] = c.eye.y;
+    ro[3 * i + 2] = c.eye.z;
+    rd[3 * i] = d.x;
+    rd[3 * i + 1] = d.y;
+    rd[3 * i + 2] = d.z;
+  }
+  return 0;
+}
+
+// KP's per-pixel term on host arrays laid out as sail_penumbra takes them;
+// `acc` (H·W, 1 + 4 S): each pixel's own value and sphere partials (summed
+// by the caller), `gx` (R, 3, H, W).
+extern "C" int sail_host_penumbra(const float* x, const float* planes, const int* ints,
+                                  const float* dl, const float* mats, const float* spheres,
+                                  const int* sphere_obj, const float* lights, const int* light_obj,
+                                  const float* cs, int R, int S, int L, int K, float* acc,
+                                  float* gx, int height, int width) {
+  const long long hw = (long long)height * width;
+  KPIn in{x, planes, ints, dl, mats, spheres, sphere_obj, lights, light_obj, cs, R, S, L, K, hw};
+  const int n_cols = 1 + 4 * S;
+  for (long long p = 0; p < hw; ++p) {
+    float* a = acc + p * n_cols;
+    for (int j = 0; j < n_cols; ++j) a[j] = 0.f;
+    penumbra_pixel(in, p, a, 1, gx);
+  }
+  return 0;
+}

@@ -3,14 +3,16 @@
 // says what it computes and how.  megakernel.cu builds the eight scene kinds
 // with STRIP 0, the production K1; profile.cu builds config 2's kind with one
 // phase stripped, so that "full minus stripped" is always this kernel's phase
-// cost.  csrc/host/k1_host.cpp runs `render_pixel` on the CPU.
+// cost.  trace_rays.cu (KR) runs the same loop from given rays.
+// csrc/host/k1_host.cpp runs `render_pixel` on the CPU, csrc/host/edge_host.cpp
+// `ray_radiance`.
 #pragma once
 
 #include "path.cuh"
 
 namespace {
 
-// The spp-SUM of radiance of pixel (row, col): K1's loop for one thread.
+// The spp-SUM of radiance of a thread's samples: the loop of K1 and KR.
 //
 // One loop runs the pixel's samples and their bounces.  A path that misses,
 // dies or ends its last bounce starts the next sample's camera ray in the
@@ -33,11 +35,16 @@ namespace {
 // each thread adds the same terms in the same order as one bounce at a time
 // (path.cuh `bounce`), and `e` reaches `acc` in sample order: the image is
 // the same bit for bit.
-template <bool ALL, bool CULL, bool MATS, int STRIP>
-__device__ __forceinline__ V3 render_pixel(const Scene& s, const Frames& fr, bool inside,
-                                           uint32_t row, uint32_t col, int spp, uint32_t seed,
-                                           uint32_t sample0, int max_bounces, float sx_scale,
-                                           float sy_scale) {
+//
+// `first_ray(sample, st)` sets a sample's first ray, st.ro and st.rd:
+// `render_pixel` below gives K1's jittered camera ray, `ray_radiance` a ray
+// of the caller's (trace_rays.cu, KR).  The rest of the loop is theirs in
+// common.
+template <bool ALL, bool CULL, bool MATS, int STRIP, class FirstRay>
+__device__ __forceinline__ V3 trace_loop(const Scene& s, const Frames& fr, bool inside,
+                                         uint32_t row, uint32_t col, int spp, uint32_t seed,
+                                         uint32_t sample0, int max_bounces,
+                                         FirstRay&& first_ray) {
   constexpr bool SHADOW = (STRIP & STRIP_NO_SHADOW) == 0;
   constexpr bool LOCK_STEP = !CULL;
   const V3 zero = {0.f, 0.f, 0.f};
@@ -52,14 +59,9 @@ __device__ __forceinline__ V3 render_pixel(const Scene& s, const Frames& fr, boo
   float sh_max = 0.f;
   if (max_bounces < 1) spp = 0;  // every sample adds +0
   for (;;) {
-    if (!ray && inside && k < spp) {  // the next sample's camera ray
+    if (!ray && inside && k < spp) {  // the next sample's first ray
       sample = sample0 + (uint32_t)k++;
-      const Camera cam = load_camera(s);
-      float jx, jy, unused, ndc_x, ndc_y, sx, sy;
-      draw3<STRIP>(stream_id(seed, sample, 0, TAG_PIXEL_JITTER), row, col, jx, jy, unused);
-      st.rd = normalize(camera_dir(cam, (float)col, (float)(int)row, jx, jy, sx_scale, sy_scale,
-                                   ndc_x, ndc_y, sx, sy));
-      st.ro = cam.eye;
+      first_ray(sample, st);
       st.thr = {1.f, 1.f, 1.f};
       st.skip_emission = false;
       b = 0;
@@ -126,6 +128,40 @@ __device__ __forceinline__ V3 render_pixel(const Scene& s, const Frames& fr, boo
     }
   }
   return acc;
+}
+
+// The spp-SUM of radiance of pixel (row, col) from its jittered camera
+// rays: K1's loop for one thread.
+template <bool ALL, bool CULL, bool MATS, int STRIP>
+__device__ __forceinline__ V3 render_pixel(const Scene& s, const Frames& fr, bool inside,
+                                           uint32_t row, uint32_t col, int spp, uint32_t seed,
+                                           uint32_t sample0, int max_bounces, float sx_scale,
+                                           float sy_scale) {
+  return trace_loop<ALL, CULL, MATS, STRIP>(
+      s, fr, inside, row, col, spp, seed, sample0, max_bounces,
+      [&](uint32_t sample, PathState& st) {
+        const Camera cam = load_camera(s);
+        float jx, jy, unused, ndc_x, ndc_y, sx, sy;
+        draw3<STRIP>(stream_id(seed, sample, 0, TAG_PIXEL_JITTER), row, col, jx, jy, unused);
+        st.rd = normalize(camera_dir(cam, (float)col, (float)(int)row, jx, jy, sx_scale, sy_scale,
+                                     ndc_x, ndc_y, sx, sy));
+        st.ro = cam.eye;
+      });
+}
+
+// The radiance of one given ray (ro, rd) of sample `sample`, drawing its
+// numbers from pixel (row, col)'s streams as K1's paths do: the plain
+// `integrator.trace_rays` of one ray with a PixelNoise, KR's loop for one
+// thread.  No cull, no strip.
+template <bool ALL, bool MATS>
+__device__ __forceinline__ V3 ray_radiance(const Scene& s, const Frames& fr, bool inside,
+                                           uint32_t row, uint32_t col, uint32_t sample,
+                                           uint32_t seed, int max_bounces, V3 ro, V3 rd) {
+  return trace_loop<ALL, false, MATS, 0>(s, fr, inside, row, col, 1, seed, sample, max_bounces,
+                                         [&](uint32_t, PathState& st) {
+                                           st.ro = ro;
+                                           st.rd = rd;
+                                         });
 }
 
 // The dynamic shared memory a K1 block takes without opting in: the cull's

@@ -52,7 +52,8 @@ from ..core.vecmath import Vec3
 from ..ops import intersect as isect
 from ..ops import materials as mat_ops
 from ..ops import textures as tex_ops
-from ..render.integrator import trace_rays
+from ..ops.cuda import penumbra
+from ..ops.cuda.megakernel import trace_rays
 from ..scene.scene import unflatten
 
 TWO_PI = 2.0 * math.pi
@@ -136,13 +137,14 @@ def sphere_silhouette(cam: CameraParams, center: Vec3, radius, ts):
     return m + (e1 * torch.cos(ang) + e2 * torch.sin(ang)) * rho
 
 
-def _edge_radiance_delta(packed, static, cols, rows, normals, height, width,
+def _edge_radiance_delta(params, static, cols, rows, normals, height, width,
                          seed, n_noise, delta_px, max_bounces):
     """Δf = f_inside − f_outside at screen edge points, from ray pairs offset
     ∓delta_px (a number, or a tensor of one offset per point) along the
     screen normal, both sides drawing the same random numbers (the edge
-    pixel's streams).  The `n_noise` passes are stacked on a leading axis
-    and traced in one `trace_rays` call, then added in pass order.  A Vec3
+    pixel's streams), through the scene of the flat tensor `params`.  The
+    `n_noise` passes are stacked on a leading axis and traced in one
+    `trace_rays` call (KR on the card), then added in pass order.  A Vec3
     of (M,) tensors, detached."""
     nx, ny = normals
     with torch.no_grad():
@@ -153,9 +155,9 @@ def _edge_radiance_delta(packed, static, cols, rows, normals, height, width,
         jj = _pixel_index(cols, width).broadcast_to(shape)
         samples = 7919 + torch.arange(n_noise)
         noise = rng.pixel_noise(seed, samples[:, None, None], ii=ii, jj=jj)
-        ro, rd = rays_for_pixels(packed.camera, orr, off, height, width,
-                                 jitter_x=0.0, jitter_y=0.0)
-        color = trace_rays(packed, static, ro.broadcast_to(shape),
+        ro, rd = rays_for_pixels(unflatten(params, static).camera, orr, off,
+                                 height, width, jitter_x=0.0, jitter_y=0.0)
+        color = trace_rays(params, static, ro.broadcast_to(shape),
                            rd.broadcast_to(shape), noise, max_bounces)
         acc = Vec3(*(c[0] for c in color))
         for k in range(1, n_noise):
@@ -176,9 +178,9 @@ class _Straddles:
     get alone.  Unbatched, each `add` calls it at once for that site's
     points alone (the per-site path the batch is held against)."""
 
-    def __init__(self, packed, static, height, width, seed, n_noise,
+    def __init__(self, params, static, height, width, seed, n_noise,
                  max_bounces, batched: bool):
-        self.trace_args = (packed, static)
+        self.trace_args = (params.detach(), static)
         self.kw = dict(height=height, width=width, seed=seed,
                        n_noise=n_noise, max_bounces=max_bounces)
         self.batched = batched
@@ -808,7 +810,7 @@ def boundary_term(params: torch.Tensor, static, d_loss_d_image,
     size = dict(height=height, width=width, delta_px=delta_px)
 
     def edge_scalar(pk, pk_detached):
-        straddles = _Straddles(pk_detached, static, height, width, seed,
+        straddles = _Straddles(params, static, height, width, seed,
                                n_noise, max_bounces, batched)
         sites = []
         for i in box_ids:
@@ -883,8 +885,10 @@ def shadow_boundary_term(params: torch.Tensor, static, d_loss_d_image,
     V(x, y) dA(y), jumps across the penumbra curve Γ_x: the sphere's
     tangent circle seen from x, projected onto the light.  This evaluates
     dD/dθ = −∮_{Γ_x∩A} h(y) (n̂·dy/dθ) dl per pixel, h the unoccluded
-    integrand, on (K, H, W) tensors with K = `n_curve_samples`; no ray is
-    traced for it.
+    integrand, at K = `n_curve_samples` points of each curve; no ray is
+    traced for it.  The receivers' hits are torch's; the term itself is
+    `ops/cuda/penumbra.penumbra_scalar`'s: on the CPU the plain version over
+    (K, H, W) tensors, on the card KP, one kernel with its adjoint.
 
     Receivers: matte surfaces seen directly or through one Mirror bounce
     (planar or curved, weighted by the mirror's kr·texture tint), and with
@@ -969,88 +973,11 @@ def shadow_boundary_term(params: torch.Tensor, static, d_loss_d_image,
                                                   & prim_matte),
                               wi_w, tint_k))
 
-    K = n_curve_samples
-    phis = _arange(K, params, 0.5)
-    ang = TWO_PI * phis[:, None, None]
-    cos_a, sin_a = torch.cos(ang), torch.sin(ang)
-
-    def curve_points(sphere_p, light_obj_p, x):
-        """Penumbra-curve points y(t) on the light's plane, (K, H, W), as a
-        function of the occluder's parameters and the receiver points x."""
-        c, r = sphere_p.center, sphere_p.radius
-        w = c - x
-        d = w.length()
-        w_hat = w * (1.0 / vm.clip(d, 1e-9))
-        ratio = vm.clip(r / vm.clip(d, 1e-9), 0.0, 1.0 - 1e-6)
-        rho = r * torch.sqrt(vm.clip(1.0 - ratio * ratio, 1e-12))
-        m = c - w_hat * (r * ratio)
-        e1 = vm.ortho(w_hat).normalize()
-        e2 = w_hat.cross(e1)
-        s = (m.broadcast_to((K, height, width))
-             + (e1 * cos_a + e2 * sin_a) * rho)
-        ex, ey, n_l = isect.rectangle_frame(light_obj_p)
-        denom = (s - x).dot(n_l)
-        lam = (light_obj_p.bmin - x).dot(n_l) / torch.where(
-            torch.abs(denom) < 1e-9, 1e-9, denom)
-        y = x + (s - x) * lam
-        return y, lam, (ex, ey, n_l), d
-
-    saved = []   # (tag, sphere index, light object, coeff, n_hat) per pair
-    with torch.no_grad():
-        for tag, rhit, rdir, tint in receivers:
-            ss, ts_f, wo, sc, receiver = receiver_data(rhit, rdir)
-            x = rhit.p
-            for i in sphere_ids:
-                for li, obj_idx in rect_lights:
-                    if obj_idx == i:
-                        continue   # a light does not shadow itself
-                    sp_d = pk_d.objects[i]
-                    lobj_d = pk_d.objects[obj_idx]
-                    le = pk_d.lights[li].emission
-
-                    y_d, lam, (ex, ey, n_l), d_cx = curve_points(sp_d,
-                                                                 lobj_d, x)
-                    rel = y_d - lobj_d.bmin
-                    exl = ex.length()
-                    eyl = ey.length()
-                    u_r = rel.dot(ex) / vm.clip(exl * exl, 1e-12)
-                    v_r = rel.dot(ey) / vm.clip(eyl * eyl, 1e-12)
-                    inside = ((u_r >= 0.0) & (u_r <= 1.0) & (v_r >= 0.0)
-                              & (v_r <= 1.0))
-
-                    to_y = y_d - x
-                    d2 = vm.clip(to_y.length_sq(), 1e-12)
-                    wi = to_y * vm.rsqrt(d2)
-                    cos_s = wi.dot(rhit.n)
-                    cos_l = (-wi).dot(n_l * lobj_d.reverse)
-                    wi_local = vm.world_to_local(wi, rhit.n, ss, ts_f)
-                    f = mat_ops.eval_matte_f(pk_d.materials, static,
-                                             rhit.mat_row, sc, wo, wi_local)
-                    h = (dL.x * tint.x * le.x * f.x
-                         + dL.y * tint.y * le.y * f.y
-                         + dL.z * tint.z * le.z * f.z) * (cos_s * cos_l / d2)
-
-                    valid = (receiver & inside & (lam > 1.0 + 1e-4)
-                             & (cos_s > 0.0) & (cos_l > 0.0)
-                             & (rhit.obj_id != i)
-                             & (d_cx > sp_d.radius * (1.0 + 1e-4)))
-
-                    # tangent, arc length and outward normal (periodic)
-                    tx = Vec3(*(torch.roll(a, -1, 0) - torch.roll(a, 1, 0)
-                                for a in y_d))
-                    dl = 0.5 * tx.length()
-                    n_raw = (n_l * lobj_d.reverse).cross(tx)
-                    n_hat = n_raw * (1.0 / vm.clip(n_raw.length(), 1e-12))
-                    # away from the occluded region: the reference point is
-                    # the sphere center projected from x
-                    denom_c = (sp_d.center - x).dot(n_l)
-                    lam_c = (lobj_d.bmin - x).dot(n_l) / torch.where(
-                        torch.abs(denom_c) < 1e-9, 1e-9, denom_c)
-                    y_c = x + (sp_d.center - x) * lam_c
-                    n_hat = n_hat * torch.sign((y_d - y_c).dot(n_hat))
-
-                    coeff = torch.where(valid, -(h * dl), 0.0)
-                    saved.append((tag, i, lobj_d, coeff, n_hat))
+    recv = [penumbra.Receiver(tag, rhit, tint, *receiver_data(rhit, rdir))
+            for tag, rhit, rdir, tint in receivers]
+    pairs = [(i, li, obj_idx) for i in sphere_ids
+             for li, obj_idx in rect_lights
+             if obj_idx != i]   # a light does not shadow itself
 
     def edge_scalar(pk, _):
         # live: the curve's position, of the occluder's parameters and the
@@ -1061,16 +988,13 @@ def shadow_boundary_term(params: torch.Tensor, static, d_loss_d_image,
         _, (ro_l, rd_l) = _pixel_rays(pk.camera, height, width, params)
         h1 = isect.intersect_scene(pk_d.objects, static, ro_l, rd_l)
         x_live = {"primary": h1.p}
-        if any(tag == "mirror" for tag, *_ in saved):
+        if "mirror" in {rc.tag for rc in recv}:
             rd2_l = (rd_l - h1.n * (2.0 * h1.n.dot(rd_l))).normalize()
             x_live["mirror"] = isect.intersect_scene(
                 pk_d.objects, static, h1.p + h1.n * 1e-4, rd2_l).p
         x_live.update(x_static)
-        total = torch.zeros((), dtype=params.dtype, device=dev)
-        for tag, i, lobj_d, coeff, n_hat in saved:
-            y_live, _, _, _ = curve_points(pk.objects[i], lobj_d, x_live[tag])
-            total = total + torch.sum(coeff * n_hat.dot(y_live))
-        return total
+        return penumbra.penumbra_scalar(pk, pk_d, static, dL, recv, x_live,
+                                        pairs, n_curve_samples)
 
     return _edge_grad(edge_scalar, params, static)
 
@@ -1145,8 +1069,8 @@ def indirect_silhouette_term(params: torch.Tensor, static, d_loss_d_image,
             df_k = None
             for sign, w_side in ((-1.0, 1.0), (1.0, -1.0)):
                 dirs = (omega * cd + n_dir * (sign * sd)).normalize()
-                color = trace_rays(pk_d, static, origin, dirs, noise,
-                                   max(max_bounces - 1, 1)) * w_side
+                color = trace_rays(params.detach(), static, origin, dirs,
+                                   noise, max(max_bounces - 1, 1)) * w_side
                 df_k = color if df_k is None else df_k + color
             acc = df_k if acc is None else acc + df_k
         return acc * (1.0 / n_noise)

@@ -33,6 +33,12 @@ is.
 `render_image_fast` / `render_tile_fast` are the JAX package's
 `custom_vjp`s (`megakernel.py:497-569`) as `torch.autograd.Function`s:
 forward K1, backward K2.
+
+KR (`trace_rays`, `csrc/trace_rays.cu`) traces a flat batch of given rays
+with K1's own per-bounce loop: the edge terms' straddle rays
+(`diff/boundary.py`), which the JAX package leaves to its XLA integrator
+inside the jitted step.  It replaces no TPU kernel; `trace_rays.launches`
+counts its launches.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from ...utils import build
 _SOURCE = "megakernel"
 _GRAD_SOURCE = "megakernel_grad"
 _GRAD_LIGHTS_SOURCE = "megakernel_grad_lights"
+_RAYS_SOURCE = "trace_rays"
 
 
 def _int32(v) -> int:
@@ -280,6 +287,79 @@ def render_block(params: torch.Tensor, static: SceneStatic, height: int,
 
 
 render_block.launches = 0
+
+
+# ------------------------------------------------------------------- KR ----
+
+KR_ARGTYPES = [_PTR] * 2 + [_INT] * 8 + [_PTR] * 12 + [_INT] * 3 + [_PTR]
+
+
+@functools.lru_cache(maxsize=None)
+def _rays_entry():
+    return _bind(_RAYS_SOURCE, "sail_trace_rays", KR_ARGTYPES)
+
+
+def _ray_ints(v, shape, device) -> torch.Tensor:
+    """A number or an integer tensor as a contiguous int32 tensor of
+    `shape` on `device`, wrapped as the kernel's uint32."""
+    t = torch.as_tensor(v, device=device).to(torch.int64)
+    t = (t + (1 << 31)) % (1 << 32) - (1 << 31)
+    return t.to(torch.int32).broadcast_to(shape).contiguous()
+
+
+def trace_rays(params: torch.Tensor, static: SceneStatic, ro: Vec3, rd: Vec3,
+               noise, max_bounces: int = C.MAX_BOUNCES) -> Vec3:
+    """The radiance of a batch of rays (`integrator.trace_rays` with a
+    PixelNoise: `noise.seed`, each ray's `noise.sample` and its pixel
+    `noise.ii`, `noise.jj`, all broadcast to the rays' shape), as a Vec3 of
+    float32 tensors of that shape.  `params` is the flat scene tensor.  A
+    CPU tensor runs the plain integrator; a CUDA tensor launches KR
+    (`csrc/trace_rays.cu`), the plain version's value bit for bit.
+    `trace_rays.launches` counts its launches."""
+    if not (isinstance(params, torch.Tensor) and params.dtype == torch.float32
+            and params.dim() == 1):
+        raise TypeError("params must be a 1-D float32 tensor")
+    if max_bounces < 0:
+        raise ValueError(f"max_bounces must be >= 0, got {max_bounces}")
+    if params.device.type == "cpu":
+        return integrator.trace_rays(unflatten(params, static), static, ro,
+                                     rd, noise, max_bounces)
+    if not params.is_cuda:
+        raise ValueError(f"no KR for device {params.device}")
+    off = scene_table(static).offsets
+    if params.numel() != off.size:
+        raise ValueError(f"scene needs {off.size} params, got "
+                         f"{params.numel()}")
+    dev = params.device
+    shape = torch.broadcast_shapes(ro.shape, rd.shape, noise.ii.shape,
+                                   noise.jj.shape)
+    rays = []
+    for c in (*ro, *rd):
+        if not (c.dtype == torch.float32 and c.device == dev):
+            raise TypeError(f"rays must be float32 tensors on {dev}")
+        rays.append(c.broadcast_to(shape).contiguous().view(-1))
+    ints = [_ray_ints(v, shape, dev).view(-1)
+            for v in (noise.sample, noise.ii, noise.jj)]
+    n = rays[0].numel()
+    out = torch.zeros((3, n), dtype=torch.float32, device=dev)
+    if n and max_bounces > 0:
+        table = scene_table(static)
+        params = params.contiguous()
+        with torch.cuda.device(dev):
+            err = _rays_entry()(
+                params.data_ptr(), _device_table(static, dev).data_ptr(),
+                *_counts(static), off.camera, table.n_frames,
+                *(t.data_ptr() for t in rays + ints),
+                *(out[c].data_ptr() for c in range(3)), n,
+                _int32(noise.seed), max_bounces,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"KR launch failed: cudaError_t {err}")
+        trace_rays.launches += 1
+    return Vec3(*(out[c].view(shape) for c in range(3)))
+
+
+trace_rays.launches = 0
 
 
 # ------------------------------------------------------------------- K2 ----

@@ -117,15 +117,34 @@ def load(name: str) -> ctypes.CDLL:
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-Wall")
 
 
+def _local_sources(source: str) -> list:
+    """`source` and every file it includes with `#include "..."`, followed
+    recursively, each found beside the file that includes it."""
+    out, todo = [], [os.path.abspath(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in out or not os.path.exists(path):
+            continue
+        out.append(path)
+        with open(path) as f:
+            todo += [os.path.normpath(os.path.join(os.path.dirname(path), inc))
+                     for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                                           f.read(), re.M)]
+    return out
+
+
 def load_host(source: str, link: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load a C++ source of the repository as a
-    shared library for the host: g++ with HOST_FLAGS and `link` into
-    HOST_BUILD_DIR, the file name carrying a hash of the flags and the
-    source, under the kernels' lock, once per process.  Raises if g++ is
-    missing or fails."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(" ".join(HOST_FLAGS + tuple(link)).encode()
-                                + f.read()).hexdigest()[:16]
+    shared library for the host: g++ with HOST_FLAGS and `link` (extra
+    flags after the source) into HOST_BUILD_DIR, the file name carrying a
+    hash of the flags, the source and the repository files it includes,
+    under the kernels' lock, once per process.  Raises if g++ is missing or
+    fails."""
+    digest = hashlib.sha256(" ".join(HOST_FLAGS + tuple(link)).encode())
+    for path in _local_sources(source):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     lib = os.path.join(HOST_BUILD_DIR, f"lib{stem}-{digest}.so")
     with _lock:

@@ -264,6 +264,54 @@ def live_ops(params, static, height: int, width: int, spp: int, seed,
     return k1, k2
 
 
+def ray_ops(params, static, ro, rd, noise,
+            max_bounces: int) -> float:
+    """KR's FP32 operations on a batch of given rays
+    (`ops/cuda/megakernel.trace_rays`): K1's per-bounce count of the
+    plain version's masks for these rays, with no camera ray, and each
+    object's and light's once-per-launch work."""
+    from ..render import integrator
+    from ..scene.scene import unflatten
+    tally = {}
+    with torch.no_grad():
+        integrator.trace_rays(unflatten(params.detach(), static), static, ro,
+                              rd, noise, max_bounces, tally=tally)
+    ops = sum(bounce_ops(static, r)[0] for r in tally.get("bounces", ()))
+    cats = static.object_categories
+    once = sum(OBJECT_OPS.get(c, 0) for c in cats) + LIGHT_OPS * sum(
+        cat == C.AREA and cats[obj] == C.RECTANGLE
+        for cat, obj in zip(static.light_categories,
+                            static.area_light_objects))
+    return ops + float(once)
+
+
+# KP (csrc/penumbra.cuh `penumbra_pixel`), counted as above: per (pixel,
+# receiver, sphere) where the pixel is a receiver, the occluder's frame
+# (`occluder`, 60) and, once, the adjoint of what the samples share (80);
+# per light of it the projected center and the numerator (34); per curve
+# point (K + 1 a light) 35; per sample its mask (49); per sample that lights
+# the receiver the coefficient (Lambert's matte_f, h, the tangent, n̂ and
+# its side: 80) and its adjoint and value (90)
+PENUMBRA_UNIT_OPS = 60 + 80
+PENUMBRA_LIGHT_OPS = 34
+PENUMBRA_POINT_OPS = 35
+PENUMBRA_SAMPLE_OPS = 49
+PENUMBRA_VALID_OPS = 80 + 90
+
+
+def penumbra_ops(tally: dict, n_curve_samples: int) -> float:
+    """KP's FP32 operations on the inputs whose plain version
+    (`ops/cuda/penumbra.penumbra_scalar_plain(..., tally=)`) filled
+    `tally`: its receiver pixels per (receiver, sphere, light) and its
+    samples that light the receiver."""
+    K = n_curve_samples
+    per_light = (PENUMBRA_LIGHT_OPS + (K + 1) * PENUMBRA_POINT_OPS
+                 + K * PENUMBRA_SAMPLE_OPS)
+    return float(tally["units"] * PENUMBRA_UNIT_OPS
+                 + tally["unit_lights"] * per_light
+                 + tally["valid"] * PENUMBRA_VALID_OPS)
+
+
 def isect_only_ops(params, static, height: int, width: int, spp: int,
                    max_bounces: int, row0: int = 0,
                    image_height: int = None) -> float:

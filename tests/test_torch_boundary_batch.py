@@ -89,7 +89,6 @@ def test_straddles_split_back_each_sites_delta():
     """`_Straddles` over requests of different sizes and offsets gives each
     request the primitive's Δf on its own points, bit for bit."""
     params, static = scenes.cornell_mirror().pack()
-    pk = unflatten(params, static)
     rs = np.random.RandomState(0)
     kw = dict(height=SIZE, width=SIZE, seed=7717, n_noise=2, max_bounces=3)
     requests = []
@@ -99,11 +98,11 @@ def test_straddles_split_back_each_sites_delta():
         ang = pts[2] * 6.2831855
         requests.append((cols, rows, (torch.cos(ang), torch.sin(ang)),
                          delta))
-    batch = tb._Straddles(pk, static, batched=True, **kw)
+    batch = tb._Straddles(params, static, batched=True, **kw)
     handles = [batch.add(*r) for r in requests]
     batch.trace()
     for h, (cols, rows, normals, delta) in zip(handles, requests):
-        want = tb._edge_radiance_delta(pk, static, cols, rows, normals,
+        want = tb._edge_radiance_delta(params, static, cols, rows, normals,
                                        delta_px=delta, **kw)
         for got_c, want_c in zip(batch[h], want):
             assert torch.equal(got_c, want_c)
