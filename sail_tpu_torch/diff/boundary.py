@@ -55,6 +55,7 @@ from ..ops import textures as tex_ops
 from ..ops.cuda import penumbra
 from ..ops.cuda.megakernel import trace_rays
 from ..scene.scene import unflatten
+from ..utils.metrics import span, spanned
 
 TWO_PI = 2.0 * math.pi
 
@@ -94,7 +95,8 @@ def _edge_grad(edge_scalar, params: torch.Tensor, static) -> torch.Tensor:
                             unflatten(params.detach(), static))
     if not (isinstance(total, torch.Tensor) and total.requires_grad):
         return torch.zeros_like(params)
-    (grad,) = torch.autograd.grad(total, p, allow_unused=True)
+    with span("sail.edge_backward"):
+        (grad,) = torch.autograd.grad(total, p, allow_unused=True)
     return torch.zeros_like(params) if grad is None else grad
 
 
@@ -567,6 +569,7 @@ def _first_true(mask: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return torch.argmax(mask.to(torch.int32), dim=dim)
 
 
+@spanned("sail.bisect")
 def _bisect(f, lo, hi, steps: int = 30):
     """`steps` halvings of [lo, hi] keeping the sign change of f; f(lo) is
     carried from the step that moved lo (the same value f would give it
@@ -773,6 +776,7 @@ def _material_of(static, i: int) -> int:
     return static.material_categories[static.object_mat_rows[i]]
 
 
+@spanned("sail.silhouette")
 def boundary_term(params: torch.Tensor, static, d_loss_d_image,
                   height: int, width: int, n_edge_samples: int = 256,
                   n_noise: int = 4, delta_px: float = 0.35, seed: int = 0,
@@ -875,6 +879,7 @@ def _pixel_rays(cam, height: int, width: int, like: torch.Tensor):
     return (ii, jj), rays_for_pixels(cam, ii, jj, height, width)
 
 
+@spanned("sail.penumbra")
 def shadow_boundary_term(params: torch.Tensor, static, d_loss_d_image,
                          height: int, width: int, n_curve_samples: int = 16,
                          seed: int = 0,
@@ -1103,6 +1108,7 @@ def indirect_silhouette_term(params: torch.Tensor, static, d_loss_d_image,
     return _edge_grad(edge_scalar, params, static)
 
 
+@spanned("sail.edge_terms")
 def full_boundary_term(params: torch.Tensor, static, d_loss_d_image,
                        height: int, width: int, n_edge_samples: int = 256,
                        n_noise: int = 4, seed: int = 0,

@@ -32,6 +32,7 @@ from ..core.vecmath import Vec3
 from ..diff.boundary import full_boundary_term, mse_adjoint
 from ..ops.cuda.megakernel import render_tile_fast
 from ..scene.scene import SceneStatic, leaf_paths
+from ..utils.metrics import span, spanned
 from .mesh import Mesh, process_count
 
 
@@ -145,6 +146,7 @@ def sharded_loss(params: torch.Tensor, target: Vec3, static: SceneStatic,
                                   width, spp, seed, max_bounces)[0]
 
 
+@spanned("sail.interior")
 def _value_grad_image(params, target, static, mesh, height, width, spp,
                       seed, max_bounces):
     """(loss, interior gradient, mean image), each the same bits on every
@@ -220,6 +222,7 @@ def make_train_step(static: SceneStatic, mesh: Mesh, height: int,
     n_noise_local = max(1, n_noise // ndev)
     mask = None if trainable is None else trainable.to(params)
 
+    @spanned("sail.train_step")
     def step(target: Vec3) -> torch.Tensor:
         target = _on(mesh.device, target)
         loss, grad, img = _value_grad_image(params, target, static, mesh,
@@ -238,7 +241,8 @@ def make_train_step(static: SceneStatic, mesh: Mesh, height: int,
         if mask is not None:
             grad = grad * mask
         params.grad = grad
-        optimizer.step()
+        with span("sail.adam"):
+            optimizer.step()
         return loss.detach()
 
     return step

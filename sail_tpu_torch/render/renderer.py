@@ -33,6 +33,7 @@ from ..ops import filters
 from ..ops.cuda.megakernel import render_block
 from ..scene.scene import Scene, unflatten
 from ..utils.device import resolve
+from ..utils.metrics import span, spanned
 from .integrator import gbuffer
 from .overlay import draw_selection
 
@@ -65,6 +66,7 @@ class Renderer:
         # read at every render call, so a change takes effect at the next
         self._early_exit = bool(value)
 
+    @spanned("sail.pack")
     def _pack(self, scene: Scene):
         params, self._static = scene.pack()
         self._params = params.to(self.device)
@@ -125,8 +127,9 @@ class Renderer:
                 unflatten(self._params, self._static), self._static,
                 self.height, self.width, self.seed, self._gbuffer_sample)
             self._gbuffer_ok = True
-        img = filters.apply_filter(name, self.current(), self._normal,
-                                   self._position, **params)
+        with span("sail.filter"):
+            img = filters.apply_filter(name, self.current(), self._normal,
+                                       self._position, **params)
         out = img.stack().cpu().numpy()
         if scene is not None and scene.select is not None:
             out = draw_selection(out, scene, scene.select)

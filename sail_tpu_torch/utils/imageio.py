@@ -1,13 +1,17 @@
 """Image output helpers, PPM and PNG (port of `sail_tpu/utils/imageio.py`;
 numpy and zlib).  `png_bytes` takes the native codec (`utils/native.py`)
 where it builds, as the JAX package does, and the Python encoder (the
-same bytes as the JAX package's) on a host without g++."""
+same bytes as the JAX package's) on a host without g++; either way the
+tone map and the encode are the profiler's ranges `sail.tonemap` and
+`sail.deflate` (`metrics.span`)."""
 from __future__ import annotations
 
 import struct
 import zlib
 
 import numpy as np
+
+from .metrics import span
 
 
 def to_uint8(img: np.ndarray, gamma: float = 2.2) -> np.ndarray:
@@ -31,8 +35,14 @@ def png_bytes(img: np.ndarray, gamma: float = 2.2) -> bytes:
     and the Python encoder."""
     from . import native
     if native.available():
-        return native.png_bytes(np.asarray(img, np.float32), gamma)
-    return _png_bytes_py(to_uint8(img, gamma))
+        with span("sail.tonemap"):
+            u8 = native.tonemap_u8(np.asarray(img, np.float32), gamma)
+        with span("sail.deflate"):
+            return native.encode_png(u8)
+    with span("sail.tonemap"):
+        u8 = to_uint8(img, gamma)
+    with span("sail.deflate"):
+        return _png_bytes_py(u8)
 
 
 def _png_bytes_py(u8: np.ndarray) -> bytes:

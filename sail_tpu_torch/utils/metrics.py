@@ -4,19 +4,23 @@
 `RenderMeter.stop(sync=t)` waits for `t`'s CUDA device, where the JAX
 package blocks until `t` is ready.  `profile_trace` runs
 `torch.profiler` (the CPU and, where there is a card, CUDA activities)
-and writes a Chrome trace.  The JAX package's `xla_flops` and `mfu`
+and writes a Chrome trace, in which the program's own host ranges
+(`span`: the train step, the edge terms, the repack, the display) show
+beside torch's operations.  The JAX package's `xla_flops` and `mfu`
 count XLA's compiled operations and are not ported; the port's count of
 the kernels' work is `utils/opcount.live_ops`.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import time
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def rays_per_sample(height: int, width: int, bounces: int,
@@ -100,6 +104,31 @@ def profile_trace(logdir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host range called `name` over a `with` block while a torch
+    profiler records, else one shared context that does nothing.  The
+    range is a plain CPU operation, not a user annotation, so the profiler
+    gives it no device-side twin and it adds no device event; ranges nest
+    by time on the calling thread."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def spanned(name: str):
+    """A decorator: each call of the function runs inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 def kernel_launches(prof) -> dict:
