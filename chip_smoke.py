@@ -1776,6 +1776,20 @@ def host_ms(fn, *args, runs: int = 1, **kw):
     return res, statistics.median(times)
 
 
+# KR, KP and the K2 reduce as the profiler names their kernels
+EDGE_KERNEL_NAMES = ("trace_rays_kernel", "penumbra_kernel",
+                     "reduce_grad_rows_kernel")
+
+
+def kernels_named(prof, names) -> tuple:
+    """How many kernels whose name holds each of `names` the device ran in
+    a finished torch.profiler run: a CUDA graph's kernels, which no wrapper
+    counts, included."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ran = [e.name for e in prof.events() if e.device_type == cuda]
+    return tuple(sum(part in n for n in ran) for part in names)
+
+
 class CallPatch:
     """`module.name` replaced by a wrapper until `restore()`: `calls`
     counts its calls and `args` keeps each call's positional arguments;
@@ -2243,8 +2257,11 @@ def inverse_path(dev, card: str) -> list:
     losses, step_ms, step_ev_ms, per_step = [], [], [], []
     traced = CallPatch(boundary, "trace_rays")
     plain_traced = CallPatch(integrator, "trace_rays")
+    ran0 = full_boundary_term.eager + full_boundary_term.captures
+    eager_steps = []
     for _ in range(INV_STEPS):
         before = counts()
+        eager0 = full_boundary_term.eager
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -2256,19 +2273,29 @@ def inverse_path(dev, card: str) -> list:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         step_ev_ms.append(ev0.elapsed_time(ev1))
         per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+        eager_steps.append(full_boundary_term.eager - eager0)
     traced.restore()
     plain_traced.restore()
     launches = counts()
-    if traced.calls != INV_STEPS or plain_traced.calls:
+    # the edge terms' Python runs on a key's eager and capture calls; a
+    # replay calls no trace_rays (its KR launch is in the graph)
+    ran = full_boundary_term.eager + full_boundary_term.captures - ran0
+    if traced.calls != ran or plain_traced.calls:
         raise AssertionError(f"{INV_STEPS} train steps made {traced.calls} "
                              f"trace_rays calls in the edge terms, not one "
-                             f"a step, and {plain_traced.calls} calls of the "
+                             f"a step that ran the term's Python ({ran}), "
+                             f"and {plain_traced.calls} calls of the "
                              f"plain integrator's, not none")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-    if any(c != (1, 1, 2, 1, 1) for c in per_step):
+    # the wrappers count where they launch: KR, KP and KP's reduce on the
+    # step that ran the edge terms eagerly; a replay's are counted from the
+    # profiler below
+    want_steps = [(1, 1, 1 + e, e, e) for e in eager_steps]
+    if per_step != want_steps or eager_steps[0] != 1 or sum(eager_steps) != 1:
         raise AssertionError(f"the train steps made {per_step} "
-                             f"K1/K2/reduce/KR/KP launches, not one each a "
-                             f"step and two reduces (K2's and KP's)")
+                             f"K1/K2/reduce/KR/KP launches, not {want_steps} "
+                             f"(one K1, K2 and K2's reduce a step, KR, KP "
+                             f"and KP's reduce on the one eager step)")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
             and torch.isfinite(p.detach()).all()):
         raise AssertionError(f"the loss did not fall or is not finite: "
@@ -2341,12 +2368,23 @@ def inverse_path(dev, card: str) -> list:
                                    trainable=rs.trainable_mask(
                                        static, ia.trainable))
     step_launches = {}
+    replays0 = full_boundary_term.replays
     for name, fn in (("edge", prof_step), ("interior", inner)):
         with metrics.profile_trace(os.path.join(TRACES, f"config5_{name}")
                                    ) as prof:
             fn(target)
             torch.cuda.synchronize()
         step_launches[name] = metrics.kernel_launches(prof)
+        if name == "edge":
+            # the step replays the edge terms' graph: its KR, KP and
+            # reduces, counted on the device by name
+            replayed = kernels_named(prof, EDGE_KERNEL_NAMES)
+    if full_boundary_term.replays != replays0 + 1 or replayed != (1, 1, 2):
+        raise AssertionError(f"the profiled step replayed the edge terms "
+                             f"{full_boundary_term.replays - replays0} "
+                             f"times and ran {replayed} KR/KP/reduce "
+                             f"kernels, not one replay with one KR, one KP "
+                             f"and two reduces (K2's and KP's)")
 
     # -- K2 and K1 against their plain versions on a row tile of the step --
     t_rows, t_row0 = K2_TILE["cornell_mirror"]
@@ -2389,19 +2427,33 @@ def inverse_path(dev, card: str) -> list:
                                   max_bounces=bounces)
     dL_m = mse_adjoint(img_m, tgt_m)
     b_cpu = full_boundary_term(start, static, dL_m, m, m, **edge_kw)
-    b_dev = full_boundary_term(start.to(dev), static,
-                               Vec3(*(c.to(dev) for c in dL_m)), m, m,
-                               **edge_kw).cpu()
+    # a new key on the card: its eager call, its capture, a replay
+    calls0 = (full_boundary_term.eager, full_boundary_term.captures,
+              full_boundary_term.replays)
+    b_devs = [full_boundary_term(start.to(dev), static,
+                                 Vec3(*(c.to(dev) for c in dL_m)), m, m,
+                                 **edge_kw).cpu() for _ in range(3)]
+    calls = tuple(a - b for a, b in zip(
+        (full_boundary_term.eager, full_boundary_term.captures,
+         full_boundary_term.replays), calls0))
+    if calls != (1, 1, 2):
+        raise AssertionError(f"three calls of a new key counted {calls} "
+                             f"eager/capture/replay calls, not (1, 1, 2)")
+    b_dev = b_devs[2]
     d = (b_dev - b_cpu).abs()
     bound_each = BND_RTOL * b_cpu.abs() + BND_ATOL * b_cpu.abs().max()
     worst = int((d / bound_each.clamp(min=1e-30)).argmax())
-    bnd_text = (f"full_boundary_term at {m}x{m}, card vs CPU: rel Linf "
-                f"{float(d.max() / b_cpu.abs().max()):.3g}, worst leaf "
-                f"{paths[worst]} cpu {float(b_cpu[worst]):.6g} card "
+    same = all(torch.equal(b, b_dev) for b in b_devs)
+    bnd_text = (f"full_boundary_term at {m}x{m}, the card's replay vs CPU: "
+                f"rel Linf {float(d.max() / b_cpu.abs().max()):.3g}, worst "
+                f"leaf {paths[worst]} cpu {float(b_cpu[worst]):.6g} card "
                 f"{float(b_dev[worst]):.6g}, "
                 f"{int((d > bound_each).sum())} of {d.numel()} leaves over "
-                f"{BND_RTOL:g}·|cpu| + {BND_ATOL:g}·max|cpu|")
-    if bool((d > bound_each).any()) or not bool(torch.isfinite(b_dev).all()):
+                f"{BND_RTOL:g}·|cpu| + {BND_ATOL:g}·max|cpu|; the eager "
+                f"call, the capture and the replay "
+                f"{'bit-identical' if same else 'not bit-identical'}")
+    if bool((d > bound_each).any()) or not same \
+            or not bool(torch.isfinite(b_dev).all()):
         raise AssertionError(f"the edge terms differ on the card: {bnd_text}")
 
     # -- a reading: the central difference of the matte sphere's center.x
@@ -2416,8 +2468,10 @@ def inverse_path(dev, card: str) -> list:
     print(f"phase 12 inverse rendering: config 5 cornell_mirror {n}x{n} "
           f"spp{spp} b{bounces}, boundary on: the target 1 K1 launch; "
           f"{INV_STEPS} train steps (Adam lr {INV_LR}, inverse_artifact's "
-          f"trainable leaves) each {per_step[0]} K1/K2/reduce launches and "
-          f"one trace_rays call in the edge terms, "
+          f"trainable leaves), K1/K2/reduce/KR/KP launches counted by "
+          f"the wrappers {per_step} (the edge terms eager on the first "
+          f"step, captured on the second, replayed after), a replayed "
+          f"step's KR/KP/reduce kernels on the device {replayed}, "
           f"loss {' '.join(f'{x:.6g}' for x in losses)}; step "
           f"{' '.join(f'{x:.1f}' for x in step_ms)} ms host clock (median "
           f"{step_med:.1f}), {' '.join(f'{x:.1f}' for x in step_ev_ms)} ms "
@@ -2499,7 +2553,7 @@ def multi_device_path(dev, card: str) -> list:
 
     from sail_tpu_torch import scenes
     from sail_tpu_torch.core.vecmath import Vec3
-    from sail_tpu_torch.diff.boundary import mse_adjoint
+    from sail_tpu_torch.diff.boundary import full_boundary_term, mse_adjoint
     from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.ops.cuda import penumbra as kp
     from sail_tpu_torch.parallel import render_sharded as rs
@@ -2636,19 +2690,29 @@ def multi_device_path(dev, card: str) -> list:
                                                             ia.trainable))
     b_losses, b_ms = [], []
     edge0 = (mk.trace_rays.launches, kp.penumbra_partials.launches)
+    fbt = full_boundary_term
+    calls0 = (fbt.eager, fbt.captures, fbt.replays)
     for _ in range(MESH_STEPS):
         loss, ms = host_ms(step_b, target)
         b_losses.append(float(loss))
         b_ms.append(ms)
     edge_launches = (mk.trace_rays.launches - edge0[0],
                      kp.penumbra_partials.launches - edge0[1])
+    edge_calls = tuple(a - b for a, b in zip(
+        (fbt.eager, fbt.captures, fbt.replays), calls0))
     if not (all(np.isfinite(b_losses)) and torch.isfinite(pb).all()):
         raise AssertionError(f"config 5's 2-rank steps with the edge terms: "
                              f"losses {b_losses}")
-    if edge_launches != (MESH_STEPS * MESH5[0],) * 2:
+    # each rank's seed is a key of its own: eager on the first step,
+    # captured on the second, replayed after; KR and KP counted where they
+    # launch, on the eager calls
+    want_calls = (MESH5[0], MESH5[0], (MESH_STEPS - 1) * MESH5[0])
+    if edge_calls != want_calls or edge_launches != (MESH5[0],) * 2:
         raise AssertionError(f"config 5's {MESH_STEPS} 2-rank steps made "
+                             f"{edge_calls} eager/capture/replay calls of "
+                             f"the edge terms, not {want_calls}, and "
                              f"{edge_launches} KR/KP launches, not one each "
-                             f"a rank and step")
+                             f"a rank's eager call")
     # the step's kernels per rank: K2 on each rank's rows at the step's
     # cotangent, the reduce of a rank's rows, the plain K2 on a row tile
     with torch.no_grad():
@@ -2722,8 +2786,10 @@ def multi_device_path(dev, card: str) -> list:
           f"ranks {k2_ms:.2f} ms, one launch {k2_one_ms:.2f} ms; K2 vs plain:"
           f" {k2_text}, plain {k2_plain_ms:.1f} ms; with the edge terms "
           f"losses {' '.join(f'{x:.6g}' for x in b_losses)}, steps "
-          f"{' '.join(f'{x:.1f}' for x in b_ms)} ms, {edge_launches} KR/KP "
-          f"launches in {MESH_STEPS} steps | (d) NCCL world size 1 "
+          f"{' '.join(f'{x:.1f}' for x in b_ms)} ms, the edge terms "
+          f"{edge_calls} eager/capture/replay calls and {edge_launches} "
+          f"KR/KP launches (on the eager calls) in {MESH_STEPS} steps | "
+          f"(d) NCCL world size 1 "
           f"(init {init_s:.2f} s): {nccl_launches[0]} K1 launches, the image "
           f"bit-identical to (a)'s, {nccl_ms:.2f} ms | {card}", flush=True)
 

@@ -11,6 +11,7 @@ megakernel runs the same hash in `uint32_t` (`csrc/megakernel.cu`).
 """
 from __future__ import annotations
 
+import numbers
 from typing import NamedTuple
 
 import torch
@@ -28,8 +29,14 @@ TAG_LENS = 5
 _MASK = 0xFFFFFFFF
 
 
-def _u32(x, device=None) -> torch.Tensor:
-    """Any int (or int tensor) as its uint32 bit pattern in int64."""
+def _u32(x, device=None):
+    """Any int (or int tensor) as its uint32 bit pattern: a Python int for
+    a number (no tensor, so nothing to copy to a device), else in int64 on
+    `device` (by default a tensor's own)."""
+    if isinstance(x, numbers.Integral):
+        return int(x) & _MASK
+    if device is None and isinstance(x, torch.Tensor):
+        device = x.device
     return torch.as_tensor(x, dtype=torch.int64, device=device) & _MASK
 
 
@@ -71,19 +78,25 @@ def _to_unit(u):
     return (u >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def stream(seed, sample_idx, bounce: int, tag: int) -> torch.Tensor:
-    """Mix (seed, sample, bounce, tag) into one stream id (uint32 in int64)."""
+def stream(seed, sample_idx, bounce: int, tag: int):
+    """Mix (seed, sample, bounce, tag) into one stream id, a uint32: a
+    Python int where the seed and sample are numbers, else in int64."""
     s = _u32(seed)
-    s = _splitmix32(s ^ _splitmix32(_u32(sample_idx, s.device)))
+    s = _splitmix32(s ^ _splitmix32(_u32(sample_idx,
+                                          getattr(s, "device", None))))
     return _splitmix32(s ^ ((bounce * 0x9E37 + tag * 0x85EB + 0x1234) & _MASK))
 
 
 def pixel_uniform3(stream_id, ii, jj):
-    """Three independent float32 uniforms per pixel for one stream.  `ii`,
-    `jj` are global integer pixel coordinates (any shape)."""
+    """Three independent float32 uniforms per pixel for one stream (a
+    number or a tensor).  `ii`, `jj` are global integer pixel coordinates
+    (any shape)."""
     ii = _u32(ii)
     jj = _u32(jj)
-    sid = _u32(stream_id, ii.device).broadcast_to(ii.shape)
+    sid = _u32(stream_id, ii.device)
+    sid = (sid.broadcast_to(ii.shape) if isinstance(sid, torch.Tensor)
+           else torch.full(ii.shape, sid, dtype=torch.int64,
+                           device=ii.device))
     a, b, c = _pcg3d(jj, ii, sid)
     return _to_unit(a), _to_unit(b), _to_unit(c)
 

@@ -40,7 +40,10 @@ gradient splits at a tie as JAX's does.
 """
 from __future__ import annotations
 
+import collections
+import functools
 import math
+import operator
 
 import torch
 
@@ -55,6 +58,7 @@ from ..ops import textures as tex_ops
 from ..ops.cuda import penumbra
 from ..ops.cuda.megakernel import trace_rays
 from ..scene.scene import unflatten
+from ..utils.graphs import Replay
 from ..utils.metrics import span, spanned
 
 TWO_PI = 2.0 * math.pi
@@ -155,7 +159,7 @@ def _edge_radiance_delta(params, static, cols, rows, normals, height, width,
         shape = (n_noise, *off.shape)                          # (n, 2, M)
         ii = _pixel_index(rows, height).broadcast_to(shape)
         jj = _pixel_index(cols, width).broadcast_to(shape)
-        samples = 7919 + torch.arange(n_noise)
+        samples = 7919 + torch.arange(n_noise, device=cols.device)
         noise = rng.pixel_noise(seed, samples[:, None, None], ii=ii, jj=jj)
         ro, rd = rays_for_pixels(unflatten(params, static).camera, orr, off,
                                  height, width, jitter_x=0.0, jitter_y=0.0)
@@ -657,7 +661,9 @@ def _mirror_sphere_silhouette_fn(m_idx: int, s_idx: int):
         change = hs[:-1] * hs[1:] <= 0.0
         found_c = change.any()
         idx = _first_true(change)
-        lo0, hi0 = _bisect(h_d, psis[idx], psis[idx + 1])
+        # gathered on the device: a tensor index would read idx on the host
+        bracket = psis.index_select(0, torch.stack((idx, idx + 1)))
+        lo0, hi0 = _bisect(h_d, bracket[0], bracket[1])
         psi0 = (0.5 * (lo0 + hi0)).detach()
         dh = (h_d(psi0 + FD_EPS) - h_d(psi0 - FD_EPS)) / (2.0 * FD_EPS)
         dh = torch.where(torch.abs(dh) < 1e-9,
@@ -850,8 +856,12 @@ def boundary_term(params: torch.Tensor, static, d_loss_d_image,
     return _edge_grad(edge_scalar, params, static)
 
 
-def _matte_rows(static, device) -> torch.Tensor:
-    return torch.tensor([c == C.MATTE for c in static.material_categories],
+@functools.lru_cache(maxsize=64)
+def _material_rows(static, category: int, device) -> torch.Tensor:
+    """Whether each material row is of `category`, a bool tensor on
+    `device` copied there once per scene structure, so a call copies
+    nothing from the host."""
+    return torch.tensor([c == category for c in static.material_categories],
                         device=device)
 
 
@@ -918,10 +928,8 @@ def shadow_boundary_term(params: torch.Tensor, static, d_loss_d_image,
     dev = params.device
     (ii, jj), (ro, rd) = _pixel_rays(pk_d.camera, height, width, params)
     hit = isect.intersect_scene(pk_d.objects, static, ro, rd)
-    matte_rows = _matte_rows(static, dev)
-    mirror_rows = torch.tensor([c == C.MIRROR
-                                for c in static.material_categories],
-                               device=dev)
+    matte_rows = _material_rows(static, C.MATTE, dev)
+    mirror_rows = _material_rows(static, C.MIRROR, dev)
 
     def receiver_data(h, d):
         ss, ts_f, wo = _shading_frame(h, d)
@@ -1033,7 +1041,7 @@ def indirect_silhouette_term(params: torch.Tensor, static, d_loss_d_image,
     pk_d = unflatten(params.detach(), static)
     (ii, jj), (ro, rd) = _pixel_rays(pk_d.camera, height, width, params)
     hit = isect.intersect_scene(pk_d.objects, static, ro, rd)
-    receiver = (hit.valid & _matte_rows(static, params.device)[
+    receiver = (hit.valid & _material_rows(static, C.MATTE, params.device)[
         hit.mat_row.long()] & (hit.emissive == 0))
     x = _detach(hit.p)
     n_A = hit.n
@@ -1108,19 +1116,14 @@ def indirect_silhouette_term(params: torch.Tensor, static, d_loss_d_image,
     return _edge_grad(edge_scalar, params, static)
 
 
-@spanned("sail.edge_terms")
-def full_boundary_term(params: torch.Tensor, static, d_loss_d_image,
-                       height: int, width: int, n_edge_samples: int = 256,
-                       n_noise: int = 4, seed: int = 0,
-                       max_bounces: int = C.MAX_BOUNCES,
-                       n_curve_samples: int = 32, shadow: bool = True,
-                       n_indirect_dirs: int = 0,
-                       indirect_silhouette: bool = False) -> torch.Tensor:
-    """The silhouette term plus (`shadow`) the NEE-penumbra term, with
-    `n_indirect_dirs` > 0 its one-diffuse-bounce receivers, and
-    (`indirect_silhouette`) the secondary-vertex silhouette term: the
-    whole edge-gradient correction modelled, for any per-pixel loss
-    adjoint.  A flat tensor like `params`."""
+def _full_boundary_term(params: torch.Tensor, static, d_loss_d_image,
+                        height: int, width: int, n_edge_samples: int = 256,
+                        n_noise: int = 4, seed: int = 0,
+                        max_bounces: int = C.MAX_BOUNCES,
+                        n_curve_samples: int = 32, shadow: bool = True,
+                        n_indirect_dirs: int = 0,
+                        indirect_silhouette: bool = False) -> torch.Tensor:
+    """`full_boundary_term`, eagerly: its terms op by op."""
     bnd = boundary_term(params, static, d_loss_d_image, height, width,
                         n_edge_samples=n_edge_samples, n_noise=n_noise,
                         seed=seed, max_bounces=max_bounces)
@@ -1134,6 +1137,75 @@ def full_boundary_term(params: torch.Tensor, static, d_loss_d_image,
             params, static, d_loss_d_image, height, width, seed=seed,
             max_bounces=max_bounces)
     return bnd
+
+
+# full_boundary_term's graphs by key, the most recently used last; a key
+# seen once holds None (its first call ran eagerly)
+_GRAPHS = collections.OrderedDict()
+_MAX_GRAPHS = 16
+
+
+@spanned("sail.edge_terms")
+def full_boundary_term(params: torch.Tensor, static, d_loss_d_image,
+                       height: int, width: int, n_edge_samples: int = 256,
+                       n_noise: int = 4, seed: int = 0,
+                       max_bounces: int = C.MAX_BOUNCES,
+                       n_curve_samples: int = 32, shadow: bool = True,
+                       n_indirect_dirs: int = 0,
+                       indirect_silhouette: bool = False) -> torch.Tensor:
+    """The silhouette term plus (`shadow`) the NEE-penumbra term, with
+    `n_indirect_dirs` > 0 its one-diffuse-bounce receivers, and
+    (`indirect_silhouette`) the secondary-vertex silhouette term: the
+    whole edge-gradient correction modelled, for any per-pixel loss
+    adjoint.  A flat tensor like `params`.
+
+    On a CUDA device the term is one CUDA graph, keyed on what decides its
+    kernels: the device, `static`, the shapes and dtypes of `params` and
+    the adjoint, and every other argument.  A key's first call runs
+    eagerly (it builds KR and KP and fills the cached tables); its second
+    captures the whole term, autograd included, over static copies of the
+    params and the (3, H, W) adjoint (`utils/graphs.Replay`); every later
+    call copies them in and replays (span `sail.edge_replay`).  Each
+    replay runs the eager call's kernels on the same inputs.  CPU tensors
+    run eagerly.
+    `full_boundary_term.eager`, `.captures` and `.replays` count each; the
+    kernel wrappers' `launches` count the eager calls' launches only (a
+    capture launches nothing, and a replay's kernels are the graph's)."""
+    kw = dict(n_edge_samples=n_edge_samples, n_noise=n_noise, seed=seed,
+              max_bounces=max_bounces, n_curve_samples=n_curve_samples,
+              shadow=shadow, n_indirect_dirs=n_indirect_dirs,
+              indirect_silhouette=indirect_silhouette)
+    if not params.is_cuda:
+        full_boundary_term.eager += 1
+        return _full_boundary_term(params, static, d_loss_d_image, height,
+                                   width, **kw)
+    adj = torch.stack(tuple(_adjoint(d_loss_d_image, params)))
+    key = (params.device, static, params.shape, params.dtype, adj.shape,
+           adj.dtype, height, width, operator.index(seed),
+           *(v for k, v in kw.items() if k != "seed"))
+    if key not in _GRAPHS:
+        _GRAPHS[key] = None
+        if len(_GRAPHS) > _MAX_GRAPHS:
+            _GRAPHS.popitem(last=False)
+        full_boundary_term.eager += 1
+        return _full_boundary_term(params, static, d_loss_d_image, height,
+                                   width, **kw)
+    _GRAPHS.move_to_end(key)
+    if _GRAPHS[key] is None:
+        _GRAPHS[key] = Replay(
+            lambda p, a: _full_boundary_term(p, static, Vec3(*a), height,
+                                             width, **kw),
+            (params, adj))
+        full_boundary_term.captures += 1
+    with span("sail.edge_replay"):
+        out = _GRAPHS[key].replay(params, adj)
+    full_boundary_term.replays += 1
+    return out
+
+
+full_boundary_term.eager = 0
+full_boundary_term.captures = 0
+full_boundary_term.replays = 0
 
 
 def mse_adjoint(img: Vec3, target: Vec3) -> Vec3:

@@ -17,7 +17,8 @@ with ctypes.
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; it never falls back from one to the other.
 `render_block.launches`, `render_grad_block.launches` (K2, launched by
-`render_grad_rows`) and `reduce_grad_rows.launches` count kernel launches.
+`render_grad_rows`) and `reduce_grad_rows.launches` count kernel launches
+(`count_launch`: not those captured into a CUDA graph).
 K1 is built for eight scene kinds (`render_block_kernel<ALL, CULL, MATS,
 0>`, `csrc/render_block.cuh`; the last argument strips no phase) and K2
 (`render_grad_kernel<CAP, ALL, MATS, 0, MIN_BLOCKS>`,
@@ -65,6 +66,14 @@ _RAYS_SOURCE = "trace_rays"
 def _int32(v) -> int:
     """A Python int as the int32 the kernel takes (wrapping, like JAX's)."""
     return (operator.index(v) + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def count_launch(wrapper) -> None:
+    """One launch more on `wrapper.launches`, unless the current stream is
+    capturing a CUDA graph: a capture launches nothing, and the graph's
+    replays are not the wrapper's calls."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
 
 
 class Table(NamedTuple):
@@ -282,7 +291,7 @@ def render_block(params: torch.Tensor, static: SceneStatic, height: int,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {err}")
-    render_block.launches += 1
+    count_launch(render_block)
     return Vec3(out[0], out[1], out[2])
 
 
@@ -301,8 +310,11 @@ def _rays_entry():
 
 def _ray_ints(v, shape, device) -> torch.Tensor:
     """A number or an integer tensor as a contiguous int32 tensor of
-    `shape` on `device`, wrapped as the kernel's uint32."""
-    t = torch.as_tensor(v, device=device).to(torch.int64)
+    `shape` on `device`, wrapped as the kernel's uint32; a number is
+    filled in on the device (no host copy)."""
+    if not isinstance(v, torch.Tensor):
+        return torch.full(shape, _int32(v), dtype=torch.int32, device=device)
+    t = v.to(device=device, dtype=torch.int64)
     t = (t + (1 << 31)) % (1 << 32) - (1 << 31)
     return t.to(torch.int32).broadcast_to(shape).contiguous()
 
@@ -355,7 +367,7 @@ def trace_rays(params: torch.Tensor, static: SceneStatic, ro: Vec3, rd: Vec3,
                 torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"KR launch failed: cudaError_t {err}")
-        trace_rays.launches += 1
+        count_launch(trace_rays)
     return Vec3(*(out[c].view(shape) for c in range(3)))
 
 
@@ -512,7 +524,7 @@ def reduce_grad_rows(rows: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream(rows.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K2 reduce launch failed: cudaError_t {err}")
-    reduce_grad_rows.launches += 1
+    count_launch(reduce_grad_rows)
     return out
 
 
@@ -591,7 +603,7 @@ def render_grad_rows(params: torch.Tensor, static: SceneStatic, g: Vec3,
             image_height, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError_t {err}")
-    render_grad_block.launches += 1
+    count_launch(render_grad_block)
     return rows
 
 

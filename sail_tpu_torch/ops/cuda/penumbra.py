@@ -193,6 +193,13 @@ def _stack(parts) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(*parts))
 
 
+@functools.lru_cache(maxsize=64)
+def _ints_on(values: tuple, device: torch.device) -> torch.Tensor:
+    """An int32 tensor of `values` on `device`, copied there once per
+    scene structure, so a call copies nothing from the host."""
+    return torch.tensor(values, dtype=torch.int32, device=device)
+
+
 def pack_inputs(pk_d, static, dL: Vec3, receivers, pairs, K: int):
     """(sphere indices, Inputs) for KP from the detached scene."""
     like = dL.x
@@ -216,15 +223,12 @@ def pack_inputs(pk_d, static, dL: Vec3, receivers, pairs, K: int):
             *pk_d.lights[li].emission, vm.clip(exl * exl, 1e-12),
             vm.clip(eyl * eyl, 1e-12))))
     cos_a, sin_a = curve_angles(K, like)
-
-    def ints_of(v):
-        return torch.tensor(v, dtype=torch.int32, device=like.device)
-
     return sphere_ids, Inputs(
         planes.contiguous(), ints.contiguous(), dL.stack(0).contiguous(),
-        torch.stack(mats).contiguous(), ints_of(sphere_ids),
+        torch.stack(mats).contiguous(), _ints_on(tuple(sphere_ids),
+                                                 like.device),
         torch.stack(lights).contiguous(),
-        ints_of([o for _, o in light_ids]),
+        _ints_on(tuple(o for _, o in light_ids), like.device),
         torch.stack((cos_a.view(-1), sin_a.view(-1))).contiguous())
 
 
@@ -299,7 +303,7 @@ def penumbra_partials(spheres: torch.Tensor, xs: torch.Tensor, c: Inputs):
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"KP launch failed: cudaError_t {err}")
-    penumbra_partials.launches += 1
+    mk.count_launch(penumbra_partials)
     out = mk.reduce_grad_rows(rows)
     return out[0], out[1:].view(S, 4), gx
 

@@ -15,9 +15,10 @@ SEEDS = [0, 7, -1, -123456789, 2**31 - 1, -2**31, 1234567891]
 SAMPLES = [0, 1, 63, 1000, 2**31 - 1]
 
 
-def _as_int32(t: torch.Tensor) -> np.ndarray:
-    """uint32 words held in int64 -> the JAX package's int32 bit patterns."""
-    return t.numpy().astype(np.uint32).view(np.int32)
+def _as_int32(t) -> np.ndarray:
+    """uint32 words held in int64 (or a Python int) -> the JAX package's
+    int32 bit patterns."""
+    return np.asarray(t, dtype=np.int64).astype(np.uint32).view(np.int32)
 
 
 @pytest.mark.parametrize("tag", range(6))
