@@ -1,6 +1,9 @@
 """The benchmark's own tests (`python -m pytest perfbench -q`): on the CPU
 they drive every cell at a tiny size through the program's plain torch
-path; those marked `card` need a CUDA device and skip without one."""
+path (a multi-card cell's runs as processes on the CPU, over gloo); those
+marked `card` need a CUDA device, and as many as the cell's chips, and skip
+without them."""
+import json
 import os
 import sys
 
@@ -10,15 +13,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-# each traffic at a size a CPU test holds
-TINY = {"fwdbwd": dict(size=16, spp=2, bounces=2),
-        "render": dict(size=16, spp=4, bounces=2, check_rows=2),
-        "inverse": dict(size=16, spp=2, bounces=2, edge_samples=16,
-                        followed_steps=2),
-        "viewer": dict(size=16, spp=1, bounces=2, session=6, moving=2,
-                       control_frames=9, trace_units=6)}
-CELLS = ("cornell_mirror.fwdbwd", "lights_and_quadrics.render",
-         "cornell_mirror.inverse", "cornell_mirror.viewer")
+# every cell of BENCHMARK.json, each found by its name
+with open(os.path.join(ROOT, "BENCHMARK.json")) as _f:
+    CELLS = tuple(w["name"] for w in json.load(_f)["workloads"])
 
 
 def pytest_configure(config):
@@ -36,8 +33,9 @@ def card():
 
 
 def tiny_cell(name: str, root: str = ROOT) -> dict:
-    """The cell `name` with its traffic cut to a CPU test's size."""
+    """The cell `name` with its traffic cut to a CPU test's size: the
+    traffic file's own `tiny` sizes."""
     from perfbench import harness
     cell = harness.load_cell(name, root)
-    cell["traffic"].update(TINY[cell["workload"]["traffic"]])
+    cell["traffic"].update(cell["traffic"]["tiny"])
     return cell

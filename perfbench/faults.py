@@ -7,6 +7,7 @@ upper limits:
         --seeds 21,22,23 --seconds 2
 """
 import argparse
+import io
 import json
 import os
 import sys
@@ -110,21 +111,51 @@ def _train_altered(monkeypatch):
     monkeypatch.setattr(rs, "_mse", lambda *a: real(*a) * 1.01)
 
 
+# by the traffic's loop; a loop may carry its own in `loops/<loop>.py`
 FAULTS = {
-    "cornell_mirror.fwdbwd": {"half": _fwdbwd(_half_spp),
-                              "altered": _fwdbwd(_altered)},
-    "lights_and_quadrics.render": {"half": _frames_half,
-                                   "altered": _frames_altered},
-    "cornell_mirror.viewer": {"unchanged": _viewer_unchanged,
-                              "altered": _viewer_png_altered},
-    "cornell_mirror.inverse": {"unchanged": _train_unchanged,
-                               "half": _train_half,
-                               "altered": _train_altered},
+    "fwdbwd": {"half": _fwdbwd(_half_spp), "altered": _fwdbwd(_altered)},
+    "frames": {"half": _frames_half, "altered": _frames_altered},
+    "viewer": {"unchanged": _viewer_unchanged,
+               "altered": _viewer_png_altered},
+    "train": {"unchanged": _train_unchanged, "half": _train_half,
+              "altered": _train_altered},
 }
 
 
-def main(argv=None) -> int:
+def of(cell: dict) -> dict:
+    """The faults of the cell's loop, by name: this file's and those its
+    loop module carries (a module-level `FAULTS`)."""
+    from perfbench import harness
+    return {**FAULTS.get(cell["traffic"]["loop"], {}),
+            **getattr(harness.loop_module(cell), "FAULTS", {})}
+
+
+def run(cell: dict, seed: int, seconds: float, fault: str | None = None,
+        device: str = "cuda", log=None) -> dict:
+    """The result of one untraced run of `cell` with `fault` planted (None:
+    a sound run): in this process for a one-card cell, through the
+    launcher for a multi-card one, each rank planting it."""
     from _pytest.monkeypatch import MonkeyPatch
+    from perfbench import harness
+    log = log or open(os.devnull, "w")
+    if cell["workload"]["chips"] > 1:
+        out = io.StringIO()
+        rc = harness.launch(cell, seed, seconds, False, time.perf_counter(),
+                            device, fault, out=out, err=log)
+        if rc:
+            raise RuntimeError(f"{cell['name']} exited with {rc}")
+        return json.loads(out.getvalue().splitlines()[-1])
+    mp = MonkeyPatch()
+    try:
+        if fault is not None:
+            of(cell)[fault](mp)
+        return harness.run_cell(cell, seed, seconds, False,
+                                time.perf_counter(), device, log=log)
+    finally:
+        mp.undo()
+
+
+def main(argv=None) -> int:
     from perfbench import harness
     ap = argparse.ArgumentParser(description="Run a cell with each of its "
                                  "faults planted; print the numbers.")
@@ -135,16 +166,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("the faults are read on a CUDA device", file=sys.stderr)
         return 2
-    for fault, patch in FAULTS[args.workload].items():
+    cell = harness.load_cell(args.workload)
+    for fault in of(cell):
         for seed in (int(s) for s in args.seeds.split(",")):
-            mp = MonkeyPatch()
-            try:
-                patch(mp)
-                r = harness.run_cell(harness.load_cell(args.workload), seed,
-                                     args.seconds, False, time.perf_counter(),
-                                     log=open(os.devnull, "w"))
-            finally:
-                mp.undo()
+            r = run(cell, seed, args.seconds, fault)
             print(json.dumps({"workload": args.workload, "fault": fault,
                               "seed": seed, "correct": r["correct"],
                               "checks": {k: v["value"] for k, v in

@@ -7,7 +7,15 @@ the program with `spans(name)`; `release()` frees what the check
 does not need; `outputs()` gives what the timed path produced, and
 `reference(dtype)` the same quantities worked out by the reference;
 `compare(program, reference)` gives the numbers, by name, that the cell's
-limits hold."""
+limits hold.
+
+A loop of a multi-card cell runs in each of the cell's processes, as rank
+`rank` of `world` on its own device: it joins the program's process group
+itself (`initialize_distributed()`, from the environment the harness sets;
+gloo on the CPU) where `world` > 1, and leaves it in `release()`, which
+every rank calls.  Only rank 0's `outputs`, `reference` and `compare` feed
+the check.  At `world` 1 the same loop runs in one process, as the CPU
+tests run it."""
 from __future__ import annotations
 
 import numpy as np
@@ -17,7 +25,8 @@ SEED_MOD = 1 << 31
 
 
 class LoopBase:
-    def __init__(self, cell: dict, seed: int, device: torch.device):
+    def __init__(self, cell: dict, seed: int, device: torch.device,
+                 rank: int = 0, world: int = 1):
         self.cell = cell
         self.config = cell["config"]
         self.t = cell["traffic"]
@@ -26,6 +35,7 @@ class LoopBase:
         self.rseed = seed % SEED_MOD
         self.rng = np.random.default_rng(seed)
         self.device = device
+        self.rank, self.world = rank, world
 
     def setup(self):
         raise NotImplementedError

@@ -15,8 +15,8 @@ from perfbench.reference import compare as ref
 
 
 class Loop(LoopBase):
-    def __init__(self, cell, seed, device):
-        super().__init__(cell, seed, device)
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
         t = self.t
         m = t["filter_margin"]
         self.rows = np.sort(self.rng.choice(

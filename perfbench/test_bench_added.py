@@ -6,7 +6,7 @@ import os
 import shutil
 import time
 
-from perfbench.conftest import ROOT, TINY
+from perfbench.conftest import ROOT
 from perfbench import harness
 
 
@@ -25,9 +25,10 @@ def test_a_cell_added_as_files_is_taken_up(tmp_path):
                                             "cornell_mirror.json"))
     config["scene"]["items"][1]["args"][1] = 0.3   # a smaller mirror
     add("configs/small_mirror.json", config)
-    add("traffic/stills.json", dict(TINY["render"], loop="frames",
-                                    warmup_units=1, trace_units=2,
-                                    filter_margin=2))
+    tiny = harness.load_json(os.path.join(bench, "traffic",
+                                          "render.json"))["tiny"]
+    add("traffic/stills.json", dict(tiny, loop="frames", warmup_units=1,
+                                    trace_units=2, filter_margin=2))
     add("workloads/small_mirror.stills.json", {
         "config": "small_mirror", "traffic": "stills", "chips": 1,
         "why": "a test cell", "limits": {"radiance_rel": 0.0,

@@ -45,7 +45,7 @@ def test_cell_found_by_name(name):
     entry = next(w for w in SPEC["workloads"] if w["name"] == name)
     assert cell["workload"]["config"] == entry["config"]
     assert cell["workload"]["traffic"] == entry["traffic"]
-    assert cell["workload"]["chips"] == entry["chips"] == 1
+    assert cell["workload"]["chips"] == entry["chips"] in (1, 4)
     loop = os.path.join(ROOT, "perfbench", "loops",
                         f"{cell['traffic']['loop']}.py")
     assert os.path.exists(loop)
@@ -58,6 +58,12 @@ def test_cell_found_by_name(name):
                 ROOT, "perfbench", kind, f"{m['name']}.py")), m["name"]
     for m in cell["per_layer"]:
         assert m["moves"] in e2e
+
+
+def test_four_card_cells_are_few():
+    """Of n cells at most max(1, n // 4) take four cards."""
+    four = [w["name"] for w in SPEC["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(SPEC["workloads"]) // 4), four
 
 
 def test_configs_are_used_and_their_files_exist():

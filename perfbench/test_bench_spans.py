@@ -14,9 +14,7 @@ from perfbench import devtrace, harness, program_spans
 
 NEW = {"cornell_mirror.inverse": ("edge_terms_ms.inverse",
                                   "edge_launches.inverse",
-                                  "edge_idle_ms.inverse",
-                                  "bisect_ms.inverse",
-                                  "edge_backward_ms.inverse"),
+                                  "edge_idle_ms.inverse"),
        "cornell_mirror.viewer": ("pack_ms.viewer", "deflate_ms.viewer")}
 
 
@@ -49,7 +47,6 @@ def test_ranges_read_on_a_hand_made_profile():
               _event("void k(int)", 120, 200, device=True)]
     p = devtrace.Profile(events, 2)
     assert _read("edge_terms_ms.inverse", p) == pytest.approx(0.15)
-    assert _read("bisect_ms.inverse", p) == pytest.approx(0.01)
     assert _read("edge_launches.inverse", p) == 1.0
     # idle inside the range: 100–120, 200–300 and 500–600
     assert _read("edge_idle_ms.inverse", p) == pytest.approx(0.11)
@@ -78,8 +75,6 @@ def test_traced_run_reports_the_ranges(name):
         if "_ms." in metric:
             assert got[metric] > 0, metric
     if name == "cornell_mirror.inverse":
-        for part in ("bisect_ms.inverse", "edge_backward_ms.inverse"):
-            assert got[part] <= got["edge_terms_ms.inverse"]
         assert got["edge_idle_ms.inverse"] <= got["edge_terms_ms.inverse"]
         # nothing is launched on the CPU
         assert got["edge_launches.inverse"] == 0
