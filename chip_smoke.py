@@ -275,6 +275,9 @@ BND_RTOL, BND_ATOL = 1e-4, 1e-4
 # coefficients; the adjoint written out against autograd's, each summed in
 # its own order: tests/test_torch_edge_kernels.py)
 KP_TOL = 1e-4
+# KA's roots and slopes against the plain solve's on the card, elementwise
+# relative (the same float32 operations; tests/test_torch_alhazen.py)
+KA_RTOL = 1e-5
 FD_EPS = 1e-2
 # the batched silhouette term against the same sites traced one by one:
 # |diff| <= BATCH_TOL·max|per-site| (the same float32 operations on the same
@@ -1776,9 +1779,9 @@ def host_ms(fn, *args, runs: int = 1, **kw):
     return res, statistics.median(times)
 
 
-# KR, KP and the K2 reduce as the profiler names their kernels
+# KR, KP, the K2 reduce and KA as the profiler names their kernels
 EDGE_KERNEL_NAMES = ("trace_rays_kernel", "penumbra_kernel",
-                     "reduce_grad_rows_kernel")
+                     "reduce_grad_rows_kernel", "alhazen_kernel")
 
 
 def kernels_named(prof, names) -> tuple:
@@ -2038,18 +2041,21 @@ def display_path(dev, card: str) -> list:
     return []
 
 
-def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0),
+def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0, 0),
                  on: str = None) -> tuple:
-    """KR and KP at config 5's step inputs (`q`, the loss adjoint `dL`, the
-    step's edge settings): KR against the plain integrator's trace_rays on
-    the silhouette term's straddle rays bit for bit; KP's penumbra term
-    (shadow_boundary_term) against the plain version's on the card per leaf
-    within KP_TOL of the largest leaf, and its partials in the receiver
-    points too; each timed beside its plain version, its bound from these
-    inputs.  `launches`: each kernel's launches in the main path's run.
-    Returns (summary, the two kernels' entries).  Raises."""
+    """KR, KP and KA at config 5's step inputs (`q`, the loss adjoint `dL`,
+    the step's edge settings): KR against the plain integrator's
+    trace_rays on the silhouette term's straddle rays bit for bit; KP's
+    penumbra term (shadow_boundary_term) against the plain version's on the
+    card per leaf within KP_TOL of the largest leaf, and its partials in
+    the receiver points too; KA against the plain Alhazen solve on the
+    silhouette term's mirror pair (the masks equal, the roots and slopes
+    within KA_RTOL); each timed beside its plain version, its bound from
+    these inputs.  `launches`: each kernel's launches in the main path's
+    run.  Returns (summary, the three kernels' entries).  Raises."""
     from sail_tpu_torch.core.vecmath import Vec3
     from sail_tpu_torch.diff import boundary
+    from sail_tpu_torch.ops.cuda import alhazen as ka
     from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.ops.cuda import penumbra as kp
     from sail_tpu_torch.render import integrator
@@ -2061,10 +2067,12 @@ def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0),
     sil_kw = {k: edge_kw[k] for k in ("n_edge_samples", "n_noise", "seed",
                                       "max_bounces")}
     tap = CallPatch(boundary, "trace_rays")
+    ka_tap = CallPatch(ka, "solve")
     try:
         boundary.boundary_term(q, static, dL, n, n, **sil_kw)
     finally:
         tap.restore()
+        ka_tap.restore()
     (kr_args,) = tap.args
     pp, st, ro, rd, noise, mb = kr_args
 
@@ -2153,6 +2161,35 @@ def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0),
     kp_b = dict(zip(("bound_ms", "bound_by"), opcount.bound_ms(
         opcount.penumbra_ops(tally, K), kp_bytes)))
 
+    # -- KA: the sphere mirror's Alhazen solve ------------------------------
+    (ka_args,) = ka_tap.args
+    f, cphi, sphi = ka_args
+    got, ka_call_ms = cuda_ms(ka.solve_kernel, f, cphi, sphi)
+    want, ka_plain_ms = cuda_ms(ka.solve_plain, f, cphi, sphi)
+    ka_plain_ms = min(ka_plain_ms, cuda_ms(ka.solve_plain, f, cphi, sphi)[1])
+    n_az = cphi.shape[0]
+    ka_bits = all(torch.equal(g, w) for g, w in zip(got, want))
+    ka_rel = max(float(((g - w).abs() / w.abs()).max())
+                 for g, w in zip(got[:4], want[:4]))
+    ka_text = (f"KA vs the plain Alhazen solve on the mirror pair's "
+               f"{n_az} azimuths: masks "
+               f"{'equal' if torch.equal(got[4], want[4]) else 'DIFFER'} "
+               f"({int(want[4].sum())} unmasked), psi0/dh/beta0/gp max rel "
+               f"{ka_rel:.3g}, "
+               f"{'bit-identical' if ka_bits else 'not bit-identical'}")
+    if not (torch.equal(got[4], want[4]) and ka_rel <= KA_RTOL
+            and all(bool(torch.isfinite(g).all()) for g in got[:4])):
+        raise AssertionError(f"KA disagrees with the plain solve: {ka_text}")
+    ka_in = (ka.pack_frame(f), ka.scan_table(cphi.device, cphi.dtype),
+             cphi.contiguous(), sphi.contiguous())
+    ka_ms = median_ms(ka.alhazen_roots, *ka_in)
+    ka_queued_ms = queued_ms(ka.alhazen_roots, *ka_in, runs=TIMED_RUNS)
+    ka_tally = {}
+    ka.solve_plain(f, cphi, sphi, tally=ka_tally)
+    ka_b = dict(zip(("bound_ms", "bound_by"), opcount.bound_ms(
+        opcount.alhazen_ops(ka_tally),
+        4 * (ka.FRAME_FLOATS + ka.NS + ka.NB + 4 * n_az + 2) + n_az)))
+
     shape = f"cornell_mirror {n}x{n} (config 5's step)"
     summary = (f"KR vs the plain trace_rays on the step's {n_rays} straddle "
                f"rays ({mb} bounces): bit-identical, KR {kr_ms:.4f} ms a "
@@ -2164,7 +2201,14 @@ def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0),
                f"{kp_b['bound_ms']:.4f} ms ({tally['units']} receiver pixel-"
                f"spheres, {tally['valid']} samples lighting their "
                f"receiver); the whole penumbra term {term_ms:.1f} ms, "
-               f"{term_plain_ms:.1f} ms with the plain version")
+               f"{term_plain_ms:.1f} ms with the plain version | {ka_text}; "
+               f"KA {ka_ms:.4f} ms a call between events (median of "
+               f"{TIMED_RUNS}), {ka_queued_ms:.4f} ms a launch queued, the "
+               f"plain solve {ka_plain_ms:.1f} ms, bound "
+               f"{ka_b['bound_ms']:.6f} ms (latency-bound: a dependent "
+               f"chain of ~{ka.NS + 34} + "
+               f"~{ka_tally['radial_scan'] // n_az + 33} curve evaluations "
+               f"a thread)")
     no_tpu = ("no TPU kernel: XLA under jax.jit "
               "(sail_tpu/parallel/render_sharded.py:257)")
     rows = [
@@ -2185,7 +2229,20 @@ def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0),
                    timing="ms: penumbra_partials (KP and the reduce of its "
                    "block rows) between events, median; plain_ms: the plain "
                    "version's scalar and autograd's partials, one call; "
-                   "max_abs_err: the penumbra term per leaf")]
+                   "max_abs_err: the penumbra term per leaf"),
+        kernel_row("KA alhazen_roots (config 5's Alhazen solve)",
+                   "sail_tpu_torch/csrc/alhazen.cu + alhazen.cuh", no_tpu,
+                   launches[2], max(float((g - w).abs().max())
+                                    for g, w in zip(got[:4], want[:4])),
+                   ka_ms, ka_plain_ms, ka_b, f"1 mirror pair x {n_az} "
+                   f"azimuths, " + shape, launches_counted_on=on,
+                   queued_ms=ka_queued_ms, call_ms=ka_call_ms,
+                   max_rel_err=ka_rel, bit_identical=ka_bits,
+                   timing="ms: alhazen_roots (KA) between events, median of "
+                   f"{TIMED_RUNS}; queued_ms: per launch queued behind a "
+                   "sleeping kernel; call_ms: solve_kernel (packing and KA), "
+                   "one call; plain_ms: the plain solve, one call; bound: "
+                   "FP32 operations over 67 TFLOP/s, latency-bound")]
     return summary, rows
 
 
@@ -2209,6 +2266,7 @@ def inverse_path(dev, card: str) -> list:
                                               shadow_boundary_term)
     from sail_tpu_torch.diff.inverse import finite_difference_grad
     from sail_tpu_torch.utils import metrics
+    from sail_tpu_torch.ops.cuda import alhazen as ka
     from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.ops.cuda import penumbra as kp
     from sail_tpu_torch.parallel import render_sharded as rs
@@ -2231,12 +2289,12 @@ def inverse_path(dev, card: str) -> list:
     def counts():
         return (mk.render_block.launches, mk.render_grad_block.launches,
                 mk.reduce_grad_rows.launches, mk.trace_rays.launches,
-                kp.penumbra_partials.launches)
+                kp.penumbra_partials.launches, ka.alhazen_roots.launches)
 
     def zero():
         mk.render_block.launches = mk.render_grad_block.launches = 0
         mk.reduce_grad_rows.launches = mk.trace_rays.launches = 0
-        kp.penumbra_partials.launches = 0
+        kp.penumbra_partials.launches = ka.alhazen_roots.launches = 0
 
     # -- the main path: the target, then the train steps ---------------------
     zero()
@@ -2244,9 +2302,9 @@ def inverse_path(dev, card: str) -> list:
         target = rs.render_sharded(params, static, mesh, n, n, spp,
                                    max_bounces=bounces)
     torch.cuda.synchronize()
-    if counts() != (1, 0, 0, 0, 0):
-        raise AssertionError(f"the target made {counts()} K1/K2/reduce/KR/KP "
-                             f"launches, not one K1")
+    if counts() != (1, 0, 0, 0, 0, 0):
+        raise AssertionError(f"the target made {counts()} K1/K2/reduce/KR/KP"
+                             f"/KA launches, not one K1")
     p = start.to(dev, copy=True).requires_grad_()
     opt = torch.optim.Adam([p], lr=INV_LR)
     step = rs.make_train_step(static, mesh, n, n, spp, opt,
@@ -2287,15 +2345,16 @@ def inverse_path(dev, card: str) -> list:
                              f"and {plain_traced.calls} calls of the "
                              f"plain integrator's, not none")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-    # the wrappers count where they launch: KR, KP and KP's reduce on the
-    # step that ran the edge terms eagerly; a replay's are counted from the
-    # profiler below
-    want_steps = [(1, 1, 1 + e, e, e) for e in eager_steps]
+    # the wrappers count where they launch: KR, KP, KP's reduce and KA on
+    # the step that ran the edge terms eagerly; a replay's are counted from
+    # the profiler below
+    want_steps = [(1, 1, 1 + e, e, e, e) for e in eager_steps]
     if per_step != want_steps or eager_steps[0] != 1 or sum(eager_steps) != 1:
         raise AssertionError(f"the train steps made {per_step} "
-                             f"K1/K2/reduce/KR/KP launches, not {want_steps} "
-                             f"(one K1, K2 and K2's reduce a step, KR, KP "
-                             f"and KP's reduce on the one eager step)")
+                             f"K1/K2/reduce/KR/KP/KA launches, not "
+                             f"{want_steps} (one K1, K2 and K2's reduce a "
+                             f"step, KR, KP, KP's reduce and KA on the one "
+                             f"eager step)")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
             and torch.isfinite(p.detach()).all()):
         raise AssertionError(f"the loss did not fall or is not finite: "
@@ -2339,10 +2398,11 @@ def inverse_path(dev, card: str) -> list:
                                max_bounces=bounces, boundary=False)
     interior_ms = host_ms(inner, target, runs=3)[1]
     # the silhouette term's parts: its one trace_rays call and its
-    # bisections, each timed to a synchronize (one instrumented call)
+    # Alhazen solve (KA), each timed to a synchronize (one instrumented
+    # call)
     parts = {}
-    timers = [CallPatch(boundary, name, parts)
-              for name in ("trace_rays", "_bisect")]
+    timers = [CallPatch(boundary, "trace_rays", parts),
+              CallPatch(ka, "solve", parts)]
     _, sil_timed_ms = host_ms(boundary_term, q, static, dL, n, n, **sil_kw)
     for t in timers:
         t.restore()
@@ -2376,15 +2436,16 @@ def inverse_path(dev, card: str) -> list:
             torch.cuda.synchronize()
         step_launches[name] = metrics.kernel_launches(prof)
         if name == "edge":
-            # the step replays the edge terms' graph: its KR, KP and
-            # reduces, counted on the device by name
+            # the step replays the edge terms' graph: its KR, KP, reduces
+            # and KA, counted on the device by name
             replayed = kernels_named(prof, EDGE_KERNEL_NAMES)
-    if full_boundary_term.replays != replays0 + 1 or replayed != (1, 1, 2):
+    if (full_boundary_term.replays != replays0 + 1
+            or replayed != (1, 1, 2, 1)):
         raise AssertionError(f"the profiled step replayed the edge terms "
                              f"{full_boundary_term.replays - replays0} "
-                             f"times and ran {replayed} KR/KP/reduce "
-                             f"kernels, not one replay with one KR, one KP "
-                             f"and two reduces (K2's and KP's)")
+                             f"times and ran {replayed} KR/KP/reduce/KA "
+                             f"kernels, not one replay with one KR, one KP, "
+                             f"two reduces (K2's and KP's) and one KA")
 
     # -- K2 and K1 against their plain versions on a row tile of the step --
     t_rows, t_row0 = K2_TILE["cornell_mirror"]
@@ -2464,14 +2525,14 @@ def inverse_path(dev, card: str) -> list:
                                   bounces), q, cx, eps=FD_EPS)
     g_int, g_bnd = float(interior[cx]), float(bnd[cx])
 
-    tr_ms, bis_ms = parts["trace_rays"], parts["_bisect"]
+    tr_ms, ka_ms = parts["trace_rays"], parts["solve"]
     print(f"phase 12 inverse rendering: config 5 cornell_mirror {n}x{n} "
           f"spp{spp} b{bounces}, boundary on: the target 1 K1 launch; "
           f"{INV_STEPS} train steps (Adam lr {INV_LR}, inverse_artifact's "
-          f"trainable leaves), K1/K2/reduce/KR/KP launches counted by "
+          f"trainable leaves), K1/K2/reduce/KR/KP/KA launches counted by "
           f"the wrappers {per_step} (the edge terms eager on the first "
           f"step, captured on the second, replayed after), a replayed "
-          f"step's KR/KP/reduce kernels on the device {replayed}, "
+          f"step's KR/KP/reduce/KA kernels on the device {replayed}, "
           f"loss {' '.join(f'{x:.6g}' for x in losses)}; step "
           f"{' '.join(f'{x:.1f}' for x in step_ms)} ms host clock (median "
           f"{step_med:.1f}), {' '.join(f'{x:.1f}' for x in step_ev_ms)} ms "
@@ -2487,7 +2548,7 @@ def inverse_path(dev, card: str) -> list:
           f"(median of 3) the silhouettes {sil_ms:.1f} ms (one instrumented "
           f"call {sil_timed_ms:.1f} ms: its trace_rays call "
           f"{tr_ms['ms']:.1f} ms on {tr_ms['rays']} rays, its "
-          f"{bis_ms['calls']} bisections {bis_ms['ms']:.1f} ms), the "
+          f"{ka_ms['calls']} Alhazen solves {ka_ms['ms']:.2f} ms), the "
           f"penumbras {pen_ms:.1f} ms; the sites one by one {site_ms:.1f} ms"
           f" in {site_calls} trace_rays calls, the batch "
           f"{'bit-identical' if batch_bits else f'{batch_diff:.3g} off'}; "
@@ -3137,7 +3198,7 @@ def main() -> int:
     nvcc = next((ln for ln in nvcc if "release" in ln), nvcc[-1])
     t0 = time.perf_counter()
     sources = ("megakernel", "megakernel_grad", "megakernel_grad_lights",
-               "profile", "profile_grad", "trace_rays", "penumbra")
+               "profile", "profile_grad", "trace_rays", "penumbra", "alhazen")
     build.build(*sources)   # one nvcc each, started together
     build_s = time.perf_counter() - t0
     usage = {f"{k} ({src})": v for src in sources
@@ -3170,14 +3231,15 @@ def main() -> int:
                    *(f"render_grad_kernel<{mk.SHARED_GRAD}, false, false, "
                      f"{st}, 2, false> (profile_grad)" for st in (1, 3)),
                    "trace_rays_kernel (trace_rays)",
-                   "penumbra_kernel (penumbra)"):
+                   "penumbra_kernel (penumbra)",
+                   "alhazen_kernel (alhazen)"):
         if kernel not in usage:
             raise AssertionError(f"no -Xptxas -v report for {kernel}")
     print(card)
     print(f"phase 1 device+build: torch {torch.__version__} cuda "
           f"{torch.version.cuda} | nvcc {nvcc} | {torch.cuda.get_device_name(0)}"
-          f" x{torch.cuda.device_count()} | K1, K2, KR, KP and the profiling "
-          f"kernels built in {build_s:.1f} s"
+          f" x{torch.cuda.device_count()} | K1, K2, KR, KP, KA and the "
+          f"profiling kernels built in {build_s:.1f} s"
           + "".join(f" | {k}: {u['registers']} registers, {u['stack']} B "
                     f"stack, {u['spill_stores']}/{u['spill_loads']} B spill "
                     f"stores/loads, {u['smem']} B static smem"

@@ -1,7 +1,9 @@
-// The edge terms' kernels on the CPU, for tests/test_torch_edge_kernels.py:
-// KR's per-ray loop (render_block.cuh `ray_radiance`, a block of one thread,
-// whose barrier returns its own predicate) and KP's per-pixel term and
-// adjoint (penumbra.cuh `penumbra_pixel`), through the stub cuda_runtime.h.
+// The edge terms' kernels on the CPU, for tests/test_torch_edge_kernels.py
+// and tests/test_torch_alhazen.py: KR's per-ray loop (render_block.cuh
+// `ray_radiance`, a block of one thread, whose barrier returns its own
+// predicate), KP's per-pixel term and adjoint (penumbra.cuh
+// `penumbra_pixel`) and KA's Alhazen solve (alhazen.cuh), through the stub
+// cuda_runtime.h.
 // Build with a host compiler, this directory first on the include path and
 // no contraction of multiply-adds (the kernels build -fmad=false), as
 // `utils/build.load_host(source, EDGE_HOST_FLAGS)` does (the tests' fixture):
@@ -9,6 +11,7 @@
 
 #include <vector>
 
+#include "../alhazen.cuh"
 #include "../penumbra.cuh"
 #include "../render_block.cuh"
 
@@ -77,6 +80,30 @@ extern "C" int sail_host_penumbra(const float* x, const float* planes, const int
     float* a = acc + p * n_cols;
     for (int j = 0; j < n_cols; ++j) a[j] = 0.f;
     penumbra_pixel(in, p, a, 1, gx);
+  }
+  return 0;
+}
+
+// KA's solve on host arrays laid out as sail_alhazen takes them: the
+// centre's scan searched in order for its first sign change (the kernel's
+// ballot), then each azimuth.
+extern "C" int sail_host_alhazen(const float* frame, const float* table, const float* cphi,
+                                 const float* sphi, int n, float* out, unsigned char* mask) {
+  const KAFrame f = ka_frame(frame);
+  const float span = ka_psi_span(f);
+  float hs[KA_NS];
+  for (int k = 0; k < KA_NS; ++k) hs[k] = ka_h(f, ka_psi(table, k, span));
+  int idx = -1;
+  for (int k = 0; k + 1 < KA_NS && idx < 0; ++k)
+    if (hs[k] * hs[k + 1] <= 0.f) idx = k;
+  const KACenter c =
+      ka_center(f, ka_psi(table, idx < 0 ? 0 : idx, span), ka_psi(table, idx < 0 ? 1 : idx + 1, span));
+  out[0] = c.psi0;
+  out[1] = c.dh;
+  for (int j = 0; j < n; ++j) {
+    bool m;
+    ka_radial(f, c, idx >= 0, table + KA_NS, cphi[j], sphi[j], out[2 + j], out[2 + n + j], m);
+    mask[j] = m;
   }
   return 0;
 }

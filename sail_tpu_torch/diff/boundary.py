@@ -55,7 +55,7 @@ from ..core.vecmath import Vec3
 from ..ops import intersect as isect
 from ..ops import materials as mat_ops
 from ..ops import textures as tex_ops
-from ..ops.cuda import penumbra
+from ..ops.cuda import alhazen, penumbra
 from ..ops.cuda.megakernel import trace_rays
 from ..scene.scene import unflatten
 from ..utils.graphs import Replay
@@ -567,31 +567,10 @@ def _revolution_curves(static, i: int, n_edge_samples: int):
     return []
 
 
-def _first_true(mask: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Index of the first True along `dim`, 0 where there is none
-    (`jnp.argmax` of a bool array)."""
-    return torch.argmax(mask.to(torch.int32), dim=dim)
-
-
-@spanned("sail.bisect")
-def _bisect(f, lo, hi, steps: int = 30):
-    """`steps` halvings of [lo, hi] keeping the sign change of f; f(lo) is
-    carried from the step that moved lo (the same value f would give it
-    again), so each step evaluates f once."""
-    f_lo = f(lo)
-    for _ in range(steps):
-        mid = 0.5 * (lo + hi)
-        f_mid = f(mid)
-        same = f_mid * f_lo > 0.0
-        lo, hi = torch.where(same, mid, lo), torch.where(same, hi, mid)
-        f_lo = torch.where(same, f_mid, f_lo)
-    return lo, hi
-
-
 def _mirror_sphere_silhouette_fn(m_idx: int, s_idx: int):
     """pts_fn of the silhouette of sphere `s_idx` seen reflected in the
     sphere mirror `m_idx` (the Alhazen configuration), which has no closed
-    form, so each azimuth runs a root solve:
+    form, so each azimuth runs a root solve (`ops/cuda/alhazen.py`):
 
       1. Alhazen center: bisect the in-plane alignment h(ψ) for the mirror
          point reflecting eye → center of S; it anchors the image's center.
@@ -601,152 +580,37 @@ def _mirror_sphere_silhouette_fn(m_idx: int, s_idx: int):
          leaves the mirror first is masked (that jump is the mirror's own
          rim, which its direct term already counts).
 
-    Both solves are detached; one Newton step from the detached root with
-    the live residual and a detached slope, x_live = x0 − f_live(x0)/f'(x0),
-    has the implicit-function derivative at the root, so gradients reach S,
-    the mirror and the camera.  Points lie at unit distance from the eye
-    along the discontinuity ray (the projection needs only the
-    direction).
+    Both solves are detached (`alhazen.solve`: eager torch on the CPU, KA
+    on the card); one Newton step from the detached root with the live
+    residual and a detached slope, x_live = x0 − f_live(x0)/f'(x0), has the
+    implicit-function derivative at the root, so gradients reach S, the
+    mirror and the camera.  Points lie at unit distance from the eye along
+    the discontinuity ray (the projection needs only the direction).
 
     `pts_fn.pair(pk, tm, pk_detached, tb)` gives `(pts_fn(pk, tm),
-    pts_fn(pk_detached, tb))` from one center solve and one radial
-    bisection over the azimuths of both (the two views hold the same
-    values, and the solves read only their detached values)."""
-    FD_EPS = 1e-4
-
+    pts_fn(pk_detached, tb))` from one solve over the azimuths of both (the
+    two views hold the same values, and the solve reads only their
+    detached values)."""
     def solve(pairs):
-        pk0 = pairs[0][0]
-
-        def frame(pk):
-            mp, sp = pk.objects[m_idx], pk.objects[s_idx]
-            e, m, R = pk.camera.eye, mp.center, mp.radius
-            c, r = sp.center, sp.radius
-            em = e - m
-            d_em = em.length()
-            u1 = em * (1.0 / vm.clip(d_em, 1e-9))
-            cm = c - m
-            pn_raw = u1.cross(cm)
-            pn_len = pn_raw.length()
-            pn = vm.where(pn_len > 1e-7,
-                          pn_raw * (1.0 / vm.clip(pn_len, 1e-12)),
-                          vm.ortho(u1).normalize())
-            u2 = pn.cross(u1)
-            u2 = u2 * torch.where(u2.dot(cm) < 0.0, -1.0, 1.0)
-            return e, m, R, c, r, d_em, u1, u2, pn
-
-        frames = [frame(pk) for pk, _ in pairs]
-        pn_d = _detach(frames[0][8])
-
-        def make_h(ev, mv, Rv, cv, u1v, u2v):
-            def h(psi):
-                q = mv + (u1v * torch.cos(psi) + u2v * torch.sin(psi)) * Rv
-                d_in = (q - ev).normalize()
-                n_q = (q - mv) * (1.0 / vm.clip(Rv, 1e-9))
-                d_r = d_in - n_q * (2.0 * d_in.dot(n_q))
-                cq = (cv - q).normalize()
-                return d_r.cross(cq).dot(pn_d)
-            return h
-
-        e, m, R, c, r, d_em, u1, u2, _ = frames[0]
-        h_d = make_h(*map(_detach, (e, m, R, c, u1, u2)))
-
-        # -- the Alhazen center (a detached scalar solve) --------------------
-        R_d, d_em_d = R.detach(), d_em.detach()
-        psi_hi = torch.acos(vm.clip(R_d / torch.maximum(d_em_d, R_d + 1e-6),
-                                    0.0, 1.0 - 1e-7))
-        NS = 64
-        psis = (torch.linspace(1e-3, 1.0, NS, dtype=R_d.dtype,
-                               device=R_d.device) * (psi_hi - 2e-3) + 1e-3)
-        hs = h_d(psis)
-        change = hs[:-1] * hs[1:] <= 0.0
-        found_c = change.any()
-        idx = _first_true(change)
-        # gathered on the device: a tensor index would read idx on the host
-        bracket = psis.index_select(0, torch.stack((idx, idx + 1)))
-        lo0, hi0 = _bisect(h_d, bracket[0], bracket[1])
-        psi0 = (0.5 * (lo0 + hi0)).detach()
-        dh = (h_d(psi0 + FD_EPS) - h_d(psi0 - FD_EPS)) / (2.0 * FD_EPS)
-        dh = torch.where(torch.abs(dh) < 1e-9,
-                         torch.where(dh < 0.0, -1e-9, 1e-9), dh)
-
-        def center_frame(e, m, R, c, r, d_em, u1, u2, pn):
-            """The live image center's ray a and its frame."""
-            h_l = make_h(e, m, R, c, u1, u2)
-            psi_live = psi0 - h_l(psi0) / dh.detach()
-            q_c = m + (u1 * torch.cos(psi_live)
-                       + u2 * torch.sin(psi_live)) * R
-            a = (q_c - e).normalize()
-            e1 = vm.ortho(a).normalize()
-            return a, e1, a.cross(e1)
-
-        centers = [center_frame(*f) for f in frames]
-
-        # -- the radial solve per azimuth, over every pair's azimuths ------
+        frames = [alhazen.frame(pk, m_idx, s_idx) for pk, _ in pairs]
+        f_d = _detach(frames[0])
         sizes = [ts.shape[0] for _, ts in pairs]
         ts_all = torch.cat([ts for _, ts in pairs])
         ang = TWO_PI * ts_all
         cphi_all, sphi_all = torch.cos(ang), torch.sin(ang)
-
-        def make_g(ev, mv, Rv, cv, rv, av, e1v, e2v, cphi, sphi):
-            def g(beta):
-                v = (av * torch.cos(beta)
-                     + (e1v * cphi + e2v * sphi) * torch.sin(beta))
-                oc = ev - mv
-                B = oc.dot(v)
-                disc = B * B - (oc.length_sq() - Rv * Rv)
-                t_hit = -B - torch.sqrt(vm.clip(disc, 0.0))
-                hitm = (disc > 0.0) & (t_hit > 1e-6)
-                q = ev + v * t_hit
-                n_q = (q - mv) * (1.0 / vm.clip(Rv, 1e-9))
-                d_r = v - n_q * (2.0 * v.dot(n_q))
-                w = cv - q
-                toward = w.dot(d_r) > 0.0
-                dist = w.cross(d_r).length()
-                ok = hitm & toward
-                return torch.where(ok, dist - rv, 1e3), ok
-            return g
-
-        a, e1, e2 = centers[0]
-        g_d = make_g(*map(_detach, (e, m, R, c, r, a, e1, e2)), cphi_all,
-                     sphi_all)
-
-        beta_max = 2.2 * torch.asin(vm.clip(
-            R_d / torch.maximum(d_em_d, R_d + 1e-6), 0.0, 1.0))
-        NB = 48
-        npts = ts_all.shape[0]
-        frac = _arange(NB, ts_all, 1.0)
-        bs = (frac[:, None] * beta_max).expand(NB, npts)
-        gs, oks = g_d(bs)
-        pos = gs > 0.0
-        found_b = pos.any(0)
-        bidx = _first_true(pos)                          # first positive
-        # the first positive sample must still hit the mirror and reflect
-        # forward, else the bracket crossed the mirror's rim (masked)
-        ok_hi = torch.gather(oks, 0, bidx[None, :])[0]
-        lo = torch.where(bidx > 0, torch.gather(
-            bs, 0, torch.clamp(bidx - 1, min=0)[None, :])[0],
-            torch.zeros_like(ts_all))
-        hi = torch.gather(bs, 0, bidx[None, :])[0]
-        lo, hi = _bisect(lambda b: g_d(b)[0], lo, hi)
-        beta0 = (0.5 * (lo + hi)).detach()
-        gp = ((g_d(beta0 + FD_EPS)[0] - g_d(beta0 - FD_EPS)[0])
-              / (2.0 * FD_EPS))
-        gp = torch.where(torch.abs(gp) < 1e-6,
-                         torch.where(gp < 0.0, -1e-6, 1e-6), gp)
-        mask = (found_c & (d_em_d > R_d * (1.0 + 1e-4)) & found_b & ok_hi
-                & (bidx > 0))
+        psi0, dh, beta0, gp, mask = alhazen.solve(f_d, cphi_all, sphi_all)
 
         out = []
         parts = zip(beta0.split(sizes), gp.split(sizes), mask.split(sizes),
                     cphi_all.split(sizes), sphi_all.split(sizes))
-        for frame_i, (a, e1, e2), (beta0_i, gp_i, mask_i, cphi, sphi) in zip(
-                frames, centers, parts):
-            e, m, R, c, r = frame_i[:5]
-            g_l = make_g(e, m, R, c, r, a, e1, e2, cphi, sphi)
-            beta_live = beta0_i - g_l(beta0_i)[0] / gp_i.detach()
+        for f, (beta0_i, gp_i, mask_i, cphi, sphi) in zip(frames, parts):
+            a, e1, e2 = alhazen.center_frame(f, f_d.pn, psi0, dh)
+            g_live, _ = alhazen.radial_residual(f, a, e1, e2, cphi, sphi,
+                                                beta0_i)
+            beta_live = beta0_i - g_live / gp_i.detach()
             v_live = (a * torch.cos(beta_live)
                       + (e1 * cphi + e2 * sphi) * torch.sin(beta_live))
-            out.append((e + v_live, mask_i.to(ts_all.dtype)))
+            out.append((f.e + v_live, mask_i.to(ts_all.dtype)))
         return out
 
     def pts_fn(pk, ts):

@@ -312,6 +312,27 @@ def penumbra_ops(tally: dict, n_curve_samples: int) -> float:
                  + tally["valid"] * PENUMBRA_VALID_OPS)
 
 
+# KA (csrc/alhazen.cuh): one evaluation of the centre's alignment h
+# (`ka_h`) and of the radial residual g (`ka_g`), each cosf and sinf one
+# operation; the centre evaluates h 64 + 1 + 30 + 2 + 1 times (its scan,
+# the bracket's low end, the halvings, the slope, the Newton step), once per
+# pair however many blocks repeat it, and each azimuth g once per radial
+# scan sample up to its first positive one, then 1 + 30 + 2 times
+ALHAZEN_H_OPS = 79
+ALHAZEN_G_OPS = 87
+ALHAZEN_CENTER_EVALS = 98
+ALHAZEN_AZIMUTH_EVALS = 33
+
+
+def alhazen_ops(tally: dict) -> float:
+    """KA's FP32 operations on the inputs whose plain version
+    (`ops/cuda/alhazen.solve_plain(..., tally=)`) filled `tally`."""
+    return float(ALHAZEN_H_OPS * ALHAZEN_CENTER_EVALS
+                 + ALHAZEN_G_OPS * (tally["radial_scan"]
+                                    + ALHAZEN_AZIMUTH_EVALS
+                                    * tally["azimuths"]))
+
+
 def isect_only_ops(params, static, height: int, width: int, spp: int,
                    max_bounces: int, row0: int = 0,
                    image_height: int = None) -> float:

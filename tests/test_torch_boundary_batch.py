@@ -21,6 +21,7 @@ import sail_tpu_torch as tsail
 from sail_tpu_torch import scenes
 from sail_tpu_torch.core.vecmath import Vec3
 from sail_tpu_torch.diff import boundary as tb
+from sail_tpu_torch.ops.cuda import alhazen as ka
 from sail_tpu_torch.scene.scene import unflatten
 
 from test_torch_boundary import (curved_mirror, planar_mirror, ramp_adjoint,
@@ -126,7 +127,7 @@ def test_bisect_carrying_f_lo_equals_evaluating_it_again():
     def f(x):
         return torch.cos(3.0 * x) - 0.2 * x * x + 0.1
 
-    for got, want in zip(tb._bisect(f, lo, hi), _plain_bisect(f, lo, hi)):
+    for got, want in zip(ka.bisect(f, lo, hi), _plain_bisect(f, lo, hi)):
         assert torch.equal(got, want)
 
 

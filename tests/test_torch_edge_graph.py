@@ -12,13 +12,14 @@ without `device=`, on a card a host-to-device copy, cannot meet the term's
 CPU tensors), over the scenes the boundary tests build: boxes and
 spheres, every revolution curve, the planar and sphere mirrors, and the
 penumbra term's direct, mirror and diffuse-bounce receivers with the
-secondary-vertex silhouette.  KR and KP, each one launch on the card, run
-here as stand-ins whose own ops are not recorded: KR's plain integrator,
-and zero partials under `penumbra_scalar_kernel` (whose packing is
-recorded).  The card test (`test_torch_edge_graph_card.py`) holds the
-replay against the eager term bit for bit.  `Replay`'s capture and replays
-run on the inputs' device whichever device is current, held here with
-stand-ins for `torch.cuda`'s device guard, stream and graph.
+secondary-vertex silhouette.  KR, KP and KA, each one launch on the card,
+run here as stand-ins whose own ops are not recorded: KR's plain
+integrator, zero partials under `penumbra_scalar_kernel` and the plain
+Alhazen solve under `alhazen.solve_kernel` (whose packing is recorded).
+The card test (`test_torch_edge_graph_card.py`) holds the replay against
+the eager term bit for bit.  `Replay`'s capture and replays run on the
+inputs' device whichever device is current, held here with stand-ins for
+`torch.cuda`'s device guard, stream and graph.
 """
 import functools
 
@@ -31,6 +32,7 @@ import sail_tpu_torch as tsail
 from sail_tpu_torch import scenes
 from sail_tpu_torch.core.vecmath import Vec3
 from sail_tpu_torch.diff import boundary as tb
+from sail_tpu_torch.ops.cuda import alhazen as ka
 from sail_tpu_torch.ops.cuda import penumbra as kp
 from sail_tpu_torch.utils import graphs
 
@@ -94,12 +96,25 @@ def _zero_partials(spheres, xs, inputs):
             torch.zeros_like(xs))
 
 
+def _plain_roots(frame_t, table, cphi, sphi):
+    """KA's contract (out, mask) from the plain solve of the packed
+    frame."""
+    v = frame_t.unbind()
+    f = ka.Frame(Vec3(*v[0:3]), Vec3(*v[3:6]), v[6], Vec3(*v[7:10]), v[10],
+                 v[11], Vec3(*v[12:15]), Vec3(*v[15:18]), Vec3(*v[18:21]))
+    psi0, dh, beta0, gp, mask = ka.solve_plain(f, cphi, sphi)
+    return torch.cat((psi0[None], dh[None], beta0, gp)), mask
+
+
 @pytest.fixture
 def card_kernels_as_stand_ins(monkeypatch):
     monkeypatch.setattr(tb, "trace_rays", _unrecorded(tb.trace_rays))
     partials = _unrecorded(_zero_partials)
     monkeypatch.setattr(kp, "penumbra_scalar", lambda *args: (
         kp.penumbra_scalar_kernel(*args, partials=partials)))
+    roots = _unrecorded(_plain_roots)
+    monkeypatch.setattr(ka, "solve", lambda *args: (
+        ka.solve_kernel(*args, roots=roots)))
 
 
 def _bits(t):

@@ -33,6 +33,7 @@ import sail_tpu_torch as tsail
 from sail_tpu_torch import scenes
 from sail_tpu_torch.core.vecmath import Vec3
 from sail_tpu_torch.diff import boundary as tb
+from sail_tpu_torch.ops.cuda import alhazen as ka
 from sail_tpu_torch.ops.cuda import megakernel as mk
 from sail_tpu_torch.ops.cuda import penumbra as kp
 from sail_tpu_torch.parallel import render_sharded as rs
@@ -45,7 +46,11 @@ BOUNCES = 4
 # make_train_step's edge terms
 EDGE = dict(n_edge_samples=192, n_noise=2, max_bounces=BOUNCES,
             n_curve_samples=32)
-KERNELS = (mk.trace_rays, kp.penumbra_partials, mk.reduce_grad_rows)
+KERNELS = (mk.trace_rays, kp.penumbra_partials, mk.reduce_grad_rows,
+           ka.alhazen_roots)
+# the term with KA against the term with the plain Alhazen solve, per leaf:
+# |diff| <= KA_TOL · max|plain|
+KA_TOL = 2.7e-5
 
 
 @pytest.fixture
@@ -79,7 +84,7 @@ def _delta(before, after):
 
 # the hand-written kernels' names in the profiler, in KERNELS' order
 KERNEL_NAMES = ("trace_rays_kernel", "penumbra_kernel",
-                "reduce_grad_rows_kernel")
+                "reduce_grad_rows_kernel", "alhazen_kernel")
 
 
 class _Calls:
@@ -161,7 +166,20 @@ def test_config5_train_steps_replay_the_eager_term(card, fresh_graphs,
     assert not torch.equal(calls.rows[0][3][0], calls.rows[2][3][0]), \
         "each step has its own adjoint"
     calls.check("config 5")
-    assert min(calls.rows[0][2][1]) > 0, "config 5 launches KR, KP, reduce"
+    assert min(calls.rows[0][2][1]) > 0, \
+        "config 5 launches KR, KP, reduce and KA"
+    assert calls.rows[0][2][1][3] == 1, "one KA launch: one mirror pair"
+    # a replayed train step, with the term itself (no eager runs beside
+    # it), runs one KA kernel, inside the term's graph
+    import chip_smoke
+    monkeypatch.setattr(rs, "full_boundary_term", tb.full_boundary_term)
+    replays = tb.full_boundary_term.replays
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(target)
+        torch.cuda.synchronize()
+    assert tb.full_boundary_term.replays == replays + 1
+    assert chip_smoke.kernels_named(prof, ("alhazen_kernel",)) == (1,)
     # a replay runs KR, KP and its reduce as often as the eager call
     # launched them: counted on the device, by name
     gen = torch.Generator().manual_seed(11)
@@ -186,6 +204,32 @@ def test_config5_train_steps_replay_the_eager_term(card, fresh_graphs,
             other(q, static, adj, size, size, seed=5 + 7717, **kw)
         other.check(f"{size}² {kw}")
     assert tb.full_boundary_term.captures >= 3
+
+
+@pytest.mark.card
+def test_config5_term_with_ka_matches_the_plain_solve(card, fresh_graphs,
+                                                     monkeypatch):
+    params, static = scenes.cornell_mirror().pack()
+    keys = leaf_paths(static)
+    params[keys.index(".objects[2].center.x")] = 0.58
+    p = params.to(card)
+    gen = torch.Generator().manual_seed(17)
+    adj = Vec3(*(torch.rand((3, SIZE, SIZE), generator=gen).to(card)
+                 * 1e-6))
+    kw = dict(seed=5 + 7717, **EDGE)
+    runs = [tb.full_boundary_term(p, static, adj, SIZE, SIZE, **kw)
+            for _ in range(3)]
+    assert tb.full_boundary_term.replays >= 1
+    monkeypatch.setattr(ka, "solve", ka.solve_plain)
+    plain = tb._full_boundary_term(p, static, adj, SIZE, SIZE, **kw)
+    top = float(plain.abs().max())
+    d = (runs[2] - plain).abs()
+    k = int(d.argmax())
+    assert top > 0 and bool(torch.isfinite(runs[2]).all())
+    assert float(d[k]) <= KA_TOL * top, \
+        f"leaf {keys[k]}: KA {float(runs[2][k]):.8g} plain " \
+        f"{float(plain[k]):.8g}, |diff| {float(d[k]):.3g} > {KA_TOL:g} x " \
+        f"{top:.3g}"
 
 
 def _planar_mirror():
