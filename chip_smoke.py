@@ -4,20 +4,18 @@
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device and build: torch, CUDA, nvcc, the card's name and power limit;
-     builds K1 (csrc/megakernel.cu, eight scene kinds), K2
-     (csrc/megakernel_grad.cu: the gradient in shared memory for two scene
-     kinds, the kind without materials also at two blocks per SM, and in
-     local arrays of three sizes for two kinds; the lights beyond a
-     rectangle area light in the shared and the 352-float builds, for two
-     kinds), K2's LIGHTS builds at 1,024 and 4,096 floats
-     (csrc/megakernel_grad_lights.cu, two kinds each), the profiling
-     kernels
-     (csrc/profile.cu: K5a, K5b, K5c, K1 with each of four phases
-     stripped), K2's stripped builds (csrc/profile_grad.cu), KR
-     (csrc/trace_rays.cu) and KP (csrc/penumbra.cu), one nvcc each,
-     started together, and reports each kernel's registers, stack,
-     spills and static shared memory (nvcc -Xptxas -v): K1's per build,
-     render_block_kernel<ALL, CULL, MATS, STRIP>.
+     builds K1 (csrc/megakernel.cu, eight scene kinds), K2's seventeen
+     builds (csrc/megakernel_grad.cu once per build of
+     ops/cuda/megakernel.py GRAD_BUILDS: the gradient in shared memory or
+     in local arrays of three sizes, with and without MATS and LIGHTS,
+     and configs 1-2's kind at two blocks per SM), K2's reduce
+     (csrc/reduce_grad_rows.cu), the profiling kernels (csrc/profile.cu:
+     K5a, K5b, K5c, K1 with each of four phases stripped), K2's stripped
+     builds (csrc/profile_grad.cu), KR (csrc/trace_rays.cu), KP
+     (csrc/penumbra.cu) and KA (csrc/alhazen.cu), one nvcc each, as many
+     at once as the host has cores, and reports each kernel's registers,
+     stack, spills and static shared memory (nvcc -Xptxas -v): K1's per
+     build, render_block_kernel<ALL, CULL, MATS, STRIP>.
   2. kernel vs plain on the card: K1 against its plain torch version on the
      same CUDA tensors (cornell_matte, cornell_mirror, a row tile, a ragged
      block with another seed, whose threads past the image's edge take part
@@ -180,8 +178,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      a 256² viewer frame of examples/viewer.py by part (K1, output, PNG)
      served to a localhost request, examples/render_scenes.py at 64² x 4
      on each of its scenes and examples/inverse_render.py for 3 steps at
-     64², their launches counted (a step of the latter: one K1, K2, KR
-     and KP, two reduces).
+     64², their launches counted (a step of the latter: one K1, K2 and
+     reduce; the edge terms' KR, KP and reduce eager at the first step,
+     then captured and replayed as one CUDA graph, which the wrappers do
+     not count).
 Every kernel's bound is computed from this run's inputs: the FP32
 operations the plain version's masks say these paths need
 (sail_tpu_torch/utils/opcount.py) over 67 TFLOP/s, or the bytes over
@@ -415,13 +415,20 @@ def bound(params, static, height: int, width: int, spp: int, bounces: int,
     return {"bound_ms": ms, "bound_by": by, "ops": k2 if grad else k1}
 
 
+def grad_build_of(n_params: int, static):
+    """K2's build for a scene (`megakernel.grad_build`)."""
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    t = mk.scene_table(static)
+    return mk.grad_build(n_params, t.all_shapes, t.materials, t.lights)
+
+
 def k2_build(n_params: int, static) -> str:
     """K2's build for a scene: "shared" (the gradient in shared memory) or
-    "local <cap>", and its blocks per SM, as the C entry chooses them."""
+    "local <cap>", and its blocks per SM."""
     from sail_tpu_torch.ops.cuda import megakernel as mk
-    b = mk.grad_build(n_params)
-    return (("shared" if b == mk.SHARED_GRAD else f"local {b}")
-            + f", {mk.grad_launch_bound(n_params, static)} blocks/SM")
+    b = grad_build_of(n_params, static)
+    return (("shared" if b.cap == mk.SHARED_GRAD else f"local {b.cap}")
+            + f", {b.min_blocks} blocks/SM")
 
 
 def kernel_row(name: str, source: str, replaces: str, launches: int,
@@ -480,7 +487,7 @@ def gradient_path(dev, card: str) -> list:
     # the reduce pass bit for bit against its plain version and against a
     # float64 sum, at the step's row count: config 2's parameters and the
     # 256-sphere scene's (13 n + 47)
-    bx, by = mk.grad_limits()["block"]
+    bx, by = mk.GRAD_BLOCK
     n_rows = -(-W // bx) * -(-H // by)
     red = [reduce_check(dev, (n_rows, len(got))),
            reduce_check(dev, (n_rows, 13 * MOST + 47))]
@@ -616,7 +623,7 @@ def gradient_path(dev, card: str) -> list:
                    localised=where, build=k2_build(params.numel(), static)),
         kernel_row(
             "K2 reduce_grad_rows (K2's cross-block sum)",
-            "sail_tpu_torch/csrc/megakernel_grad.cu",
+            "sail_tpu_torch/csrc/reduce_grad_rows.cu",
             "sail_tpu/ops/pallas/megakernel.py:459", launches[2],
             red[0]["max_abs_vs_f64"], red[0]["ms"], red[0]["plain_ms"],
             reduce_bound(red[0]), f"{n_rows} rows x {len(got)} params "
@@ -946,7 +953,7 @@ def many_gradients(dev, card: str) -> list:
                                  f"leaf: {steps[-1]}")
         rows.append(kernel_row(
             f"K2 render_grad_block ({n} spheres, "
-            f"{mk.grad_cap(params.numel())}-parameter build)",
+            f"{grad_build_of(params.numel(), static).cap}-parameter build)",
             "sail_tpu_torch/csrc/megakernel_grad.cu + render_grad.cuh + "
             "adjoint.cuh",
             "sail_tpu/ops/pallas/megakernel.py:262", launches[1], abs_err,
@@ -1442,9 +1449,10 @@ def k2_phases(dev, card: str) -> list:
     torch.cuda.synchronize()
     launches = {"render_grad_block": mk.render_grad_block.launches,
                 "render_grad_stripped": pf.render_grad_stripped.launches}
-    usage = {**{k: v for k, v in build.resource_usage(
-        "megakernel_grad").items() if k.startswith("render_grad_kernel")},
-        **build.resource_usage("profile_grad")}
+    usage = {**build.resource_usage(("megakernel_grad",
+                                     grad_build_of(params.numel(),
+                                                   static).defines)),
+             **build.resource_usage(pf.GRAD_LIBRARY)}
     n_par = params.numel()
     threads = mk.GRAD_BLOCK[0] * mk.GRAD_BLOCK[1]
     label = f"K2 phases (cornell_mirror {W}x{H} spp 4/16/{SPP} b{BOUNCES})"
@@ -1664,8 +1672,8 @@ def lights_path(dev, card: str) -> list:
 
 
 def lit_spheres(dev, card: str) -> list:
-    """Phase 10, K2's LIGHTS builds at 1,024 and 4,096 floats
-    (`csrc/megakernel_grad_lights.cu`) on many spheres and a point light:
+    """Phase 10, K2's LIGHTS builds at 1,024 and 4,096 floats on many
+    spheres and a point light:
     each against its plain version at LIT_CHECK (relative L-inf and per
     leaf with the pixel term) and bit-identical on repeat, then
     render_image_fast at LIT_STEP -> mean(x+y+z) -> backward() through
@@ -1681,8 +1689,8 @@ def lit_spheres(dev, card: str) -> list:
     for n, cap in LIT_SPHERES.items():
         params, static = scenes.lit_spheres(n).pack()
         params = params.to(dev)
-        if mk.grad_build(params.numel()) != cap or not \
-                mk.scene_table(static).lights:
+        b = grad_build_of(params.numel(), static)
+        if b.cap != cap or not b.lights:
             raise AssertionError(f"lit_spheres({n}) does not take K2's "
                                  f"LIGHTS {cap} build")
         gen = torch.Generator().manual_seed(n)
@@ -1754,7 +1762,7 @@ def lit_spheres(dev, card: str) -> list:
                      f"bit for bit")
         rows.append(kernel_row(
             f"K2 render_grad_block (lit_spheres({n}): the LIGHTS {cap} "
-            f"build)", "sail_tpu_torch/csrc/megakernel_grad_lights.cu + "
+            f"build)", "sail_tpu_torch/csrc/megakernel_grad.cu + "
             "render_grad.cuh + adjoint.cuh",
             "sail_tpu/ops/pallas/megakernel.py:262", launches[1], abs_err,
             k2_ms, plain_ms, k2_bound, step_shape, rel_linf=err,
@@ -1782,15 +1790,6 @@ def host_ms(fn, *args, runs: int = 1, **kw):
 # KR, KP, the K2 reduce and KA as the profiler names their kernels
 EDGE_KERNEL_NAMES = ("trace_rays_kernel", "penumbra_kernel",
                      "reduce_grad_rows_kernel", "alhazen_kernel")
-
-
-def kernels_named(prof, names) -> tuple:
-    """How many kernels whose name holds each of `names` the device ran in
-    a finished torch.profiler run: a CUDA graph's kernels, which no wrapper
-    counts, included."""
-    cuda = torch.autograd.DeviceType.CUDA
-    ran = [e.name for e in prof.events() if e.device_type == cuda]
-    return tuple(sum(part in n for n in ran) for part in names)
 
 
 class CallPatch:
@@ -2438,7 +2437,7 @@ def inverse_path(dev, card: str) -> list:
         if name == "edge":
             # the step replays the edge terms' graph: its KR, KP, reduces
             # and KA, counted on the device by name
-            replayed = kernels_named(prof, EDGE_KERNEL_NAMES)
+            replayed = metrics.kernels_named(prof, EDGE_KERNEL_NAMES)
     if (full_boundary_term.replays != replays0 + 1
             or replayed != (1, 1, 2, 1)):
         raise AssertionError(f"the profiled step replayed the edge terms "
@@ -2471,7 +2470,7 @@ def inverse_path(dev, card: str) -> list:
                              f" max_abs {k1_err:.3g}")
     k1_bit = torch.equal(k1_got.stack(), k1_want.stack())
     k1_ms = median_ms(mk.render_block, q, static, n, n, spp, 0, 0, bounces)
-    bx, by = mk.grad_limits()["block"]
+    bx, by = mk.GRAD_BLOCK
     red = reduce_check(dev, (-(-n // bx) * -(-n // by), q.numel()))
     on = "config 5's target and train steps"
     # -- KR and KP against their plain versions at the step's inputs --------
@@ -2585,7 +2584,7 @@ def inverse_path(dev, card: str) -> list:
                    plain_shape=tile, localised=where,
                    build=k2_build(q.numel(), static)),
         kernel_row("K2 reduce_grad_rows (config 5)",
-                   "sail_tpu_torch/csrc/megakernel_grad.cu",
+                   "sail_tpu_torch/csrc/reduce_grad_rows.cu",
                    "sail_tpu/ops/pallas/megakernel.py:459", launches[2],
                    red["max_abs_vs_f64"], red["ms"], red["plain_ms"],
                    reduce_bound(red), f"{red['shape'][0]} rows x "
@@ -2800,7 +2799,7 @@ def multi_device_path(dev, card: str) -> list:
     k2_shape = (f"cornell_mirror rows {t_row0}-{t_row0 + t_rows - 1} of {n} "
                 f"x {n} spp{spp5} b{b5}")
     k2_text, k2_err, k2_abs, _ = grad_check(k2_shape, t_got, t_want, static)
-    bx, by = mk.grad_limits()["block"]
+    bx, by = mk.GRAD_BLOCK
     red = reduce_check(dev, (-(-rows5 // by) * -(-n // bx), start.numel()))
 
     # -- (d) NCCL at world size 1: (a)'s render through the collectives ------
@@ -2880,7 +2879,7 @@ def multi_device_path(dev, card: str) -> list:
                    one_rank_ms=k2_one_ms, per_rank_ms=k2_ms / MESH5[0],
                    build=k2_build(start.numel(), static)),
         kernel_row(f"K2 reduce_grad_rows (config 5 over {MESH5[0]} ranks)",
-                   "sail_tpu_torch/csrc/megakernel_grad.cu",
+                   "sail_tpu_torch/csrc/reduce_grad_rows.cu",
                    "sail_tpu/ops/pallas/megakernel.py:459",
                    per_step["two"][2], red["max_abs_vs_f64"], red["ms"],
                    red["plain_ms"], reduce_bound(red),
@@ -2929,6 +2928,7 @@ def tools_path(dev, card: str) -> list:
     from http.server import ThreadingHTTPServer
 
     from sail_tpu_torch import scenes
+    from sail_tpu_torch.diff.boundary import full_boundary_term
     from sail_tpu_torch.examples import inverse_render, render_scenes, viewer
     from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.ops.cuda import penumbra as kp
@@ -3033,18 +3033,27 @@ def tools_path(dev, card: str) -> list:
     # -- examples/inverse_render.py ----------------------------------------
     isize, isteps = INVERSE_EXAMPLE
     zero()
+    term = full_boundary_term
+    graph0 = (term.eager, term.captures, term.replays)
     t0 = time.perf_counter()
     res = inverse_render.main(["--size", str(isize), "--steps", str(isteps),
                                "--out", EXAMPLES_OUT])
     inv_s = time.perf_counter() - t0
     inv_launches = counts()
+    graph = tuple(b - a for a, b in zip(graph0, (term.eager, term.captures,
+                                                 term.replays)))
     losses = res["losses"]
-    # a step: K1, K2, KR and KP once each, the reduce for K2's rows and
-    # KP's; and three renders
-    if inv_launches != (isteps + 3, isteps, 2 * isteps, isteps, isteps) \
+    # a step: K1 and K2 once each and the reduce for K2's rows; the edge
+    # terms (KR, KP and the reduce for KP's rows) run eagerly at the first
+    # step, are captured at the second and replayed from then on, which
+    # the wrappers do not count (full_boundary_term); and three renders
+    if inv_launches != (isteps + 3, isteps, isteps + 1, 1, 1) \
+            or graph != (1, 1, isteps - 1) \
             or not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"inverse_render made {inv_launches} "
-                             f"K1/K2/reduce/KR/KP launches, losses {losses}")
+                             f"K1/K2/reduce/KR/KP launches and {graph} "
+                             f"eager/captured/replayed edge terms, losses "
+                             f"{losses}")
 
     print(f"phase 14 tools and examples: gpu_checks ok ({checks['config']}: "
           f"K1 bit-identical, K2 rel Linf {checks['grad_rel_linf']:.3g}, "
@@ -3187,6 +3196,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.ops.cuda import profile as pf
     from sail_tpu_torch.utils import build
 
     dev = torch.device("cuda", 0)
@@ -3197,31 +3207,20 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()
     nvcc = next((ln for ln in nvcc if "release" in ln), nvcc[-1])
     t0 = time.perf_counter()
-    sources = ("megakernel", "megakernel_grad", "megakernel_grad_lights",
-               "profile", "profile_grad", "trace_rays", "penumbra", "alhazen")
-    build.build(*sources)   # one nvcc each, started together
+    libs = ("megakernel", *(("megakernel_grad", b.defines)
+                            for b in mk.GRAD_BUILDS),
+            "reduce_grad_rows", "profile", pf.GRAD_LIBRARY, "trace_rays",
+            "penumbra", "alhazen")
+    build.build(*libs)   # one nvcc each, as many at once as there are cores
     build_s = time.perf_counter() - t0
-    usage = {f"{k} ({src})": v for src in sources
-             for k, v in build.resource_usage(src).items()}
+    usage = {f"{k} ({build._spec(lib)[0]})": v
+             for lib in libs for k, v in build.resource_usage(lib).items()}
     flags = ("false", "true")
     for kernel in (*(f"render_block_kernel<{a}, {c}, {m}, 0> (megakernel)"
                      for a in flags for c in flags for m in flags),
-                   *(f"reduce_grad_rows_kernel<{ppt}> (megakernel_grad)"
+                   *(f"reduce_grad_rows_kernel<{ppt}> (reduce_grad_rows)"
                      for ppt in (1, 2, 4)),
-                   *(f"render_grad_kernel<{mk.SHARED_GRAD}, {a}, {m}, 0, {b}, "
-                     f"false> (megakernel_grad)" for a, m, b in (
-                         ("false", "false", 2), ("true", "false", 1),
-                         ("true", "true", 1))),
-                   *(f"render_grad_kernel<{cap}, true, {m}, 0, 1, false> "
-                     f"(megakernel_grad)" for cap in mk.GRAD_CAPS
-                     for m in flags),
-                   *(f"render_grad_kernel<{cap}, true, {m}, 0, 1, true> "
-                     f"(megakernel_grad)"
-                     for cap in (mk.SHARED_GRAD, mk.GRAD_CAPS[0])
-                     for m in flags),
-                   *(f"render_grad_kernel<{cap}, true, {m}, 0, 1, true> "
-                     f"(megakernel_grad_lights)"
-                     for cap in mk.LIGHTS_CAPS for m in flags),
+                   *(f"{b.kernel} (megakernel_grad)" for b in mk.GRAD_BUILDS),
                    *(f"isect_only_kernel<{a}> (profile)" for a in flags),
                    "alu_peak_kernel<0> (profile)",
                    "alu_peak_kernel<1> (profile)",

@@ -32,9 +32,13 @@
 
 #include "path.cuh"
 
-namespace {
+// The bounce states a thread stores, given as a define by the build
+// (ops/cuda/megakernel.py MAX_GRAD_BOUNCES).
+#ifndef MAX_GRAD_BOUNCES
+#error "MAX_GRAD_BOUNCES is given as a define (ops/cuda/megakernel.py)"
+#endif
 
-constexpr int MAX_GRAD_BOUNCES = 8;  // bounce states a thread stores
+namespace {
 
 // ------------------------------------------------------- rule helpers ----
 // d fmaxf(x, c)/dx and d fminf(x, c)/dx for a bound c, ties split in half.

@@ -2,17 +2,16 @@
 // pixel's gradient, from the shipped `sample_grad` (the reverse sweep
 // replays the recorded decisions) or from a reverse sweep that re-traces each
 // bounce (`closest` and `occluded` again, as K2 did before replay), one
-// pixel at a time in K2's thread order; and K2's choice of launch bound
-// (grad_build.h), as the kernels' C entries make it.  It runs K2's LIGHTS
+// pixel at a time in K2's thread order.  It runs K2's LIGHTS
 // code for every scene (a rectangle light there takes the same code as in
 // the other builds).  Build with a host compiler, this
-// directory first on the include path and no contraction of multiply-adds
-// (the kernels build -fmad=false):
+// directory first on the include path, no contraction of multiply-adds
+// (the kernels build -fmad=false) and K2's bounce limit as the kernels take
+// it (ops/cuda/megakernel.py MAX_GRAD_BOUNCES):
 //   g++ -std=c++17 -O2 -ffp-contract=off -fPIC -shared -I csrc/host \
-//       -o k2_host.so csrc/host/k2_host.cpp
+//       -DMAX_GRAD_BOUNCES=8 -o k2_host.so csrc/host/k2_host.cpp
 
 #include "../adjoint.cuh"
-#include "../grad_build.h"
 
 namespace {
 
@@ -96,10 +95,4 @@ extern "C" int sail_host_pixel_grads(const float* params, const int* table, int 
     pixel_grads<false>(s, n_params, replay != 0, gx, gy, gz, out, height, width, spp,
                        (uint32_t)seed, (uint32_t)sample0, max_bounces, row0, image_height);
   return 0;
-}
-
-// The blocks per SM of K2's build for these arguments, as megakernel_grad.cu's
-// sail_grad_min_blocks gives them.
-extern "C" int sail_host_grad_min_blocks(int n_params, int cap, int all_shapes, int materials) {
-  return grad_min_blocks(cap, n_params, all_shapes != 0, materials != 0);
 }

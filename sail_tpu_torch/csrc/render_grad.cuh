@@ -3,16 +3,26 @@
 // blocks per SM its registers are sized for and the scene's lights (LIGHTS:
 // a light other than AREA over a RECTANGLE, path.cuh light_sample's);
 // megakernel_grad.cu says what it
-// computes and how, grad_build.h which scene takes which build.
+// computes and how, ops/cuda/megakernel.py `grad_build` which scene takes
+// which build.
 // megakernel_grad.cu builds the production K2 (STRIP 0); profile_grad.cu
 // builds config 2's kind with a phase stripped, so that "full minus
 // stripped" is always this kernel's phase cost.
 #pragma once
 
 #include "adjoint.cuh"
-#include "grad_build.h"
+
+#if !defined(GRAD_BLOCK_X) || !defined(GRAD_BLOCK_Y) || !defined(SHARED_GRAD)
+#error "K2's sources take their numbers as defines (ops/cuda/megakernel.py GradBuild.defines)"
+#endif
 
 namespace {
+
+// K2's thread block; CAP SHARED_GRAD keeps each thread's gradient in its
+// column of a block-wide (n_params, THREADS) array in dynamic shared memory,
+// any other CAP is a local array of CAP floats.
+constexpr int BLOCK_X = GRAD_BLOCK_X, BLOCK_Y = GRAD_BLOCK_Y, THREADS = BLOCK_X * BLOCK_Y,
+              WARPS = THREADS / 32;
 
 // The dynamic shared memory a launch of the CAP build takes.
 inline size_t grad_smem_bytes(int cap, int n_params) {

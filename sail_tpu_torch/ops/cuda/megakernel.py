@@ -6,10 +6,9 @@ its many-object form included (the batched winner-fold, whose order the
 scene table's rows follow, and the opt-in cluster cull, `cull=True`); its
 kernel is `csrc/megakernel.cu`.  K2 replaces `render_grad_block_pallas`
 (`megakernel.py:262`); its kernels are `csrc/megakernel_grad.cu` (the
-per-pixel path adjoint, one row of block partials per thread block; with
-`csrc/megakernel_grad_lights.cu`, a library of its own, for the lit
-scenes of more than 352 parameters) and a second small pass that sums the
-rows in a fixed order.  Both are CUDA C++
+per-pixel path adjoint, one row of block partials per thread block) and
+`csrc/reduce_grad_rows.cu`, a second small pass that sums the rows in a
+fixed order.  Both are CUDA C++
 for sm_90a (the sources' headers say what bounds them and how the design
 answers), built by `utils/build.py` and bound through plain C entry points
 with ctypes.
@@ -20,20 +19,20 @@ version for a CPU tensor; it never falls back from one to the other.
 `render_grad_rows`) and `reduce_grad_rows.launches` count kernel launches
 (`count_launch`: not those captured into a CUDA graph).
 K1 is built for eight scene kinds (`render_block_kernel<ALL, CULL, MATS,
-0>`, `csrc/render_block.cuh`; the last argument strips no phase) and K2
-(`render_grad_kernel<CAP, ALL, MATS, 0, MIN_BLOCKS>`,
-`csrc/render_grad.cuh`) for where each thread keeps its gradient (CAP: in
-shared memory up to SHARED_GRAD_MAX_PARAMS parameters, else in a local
-array of GRAD_CAPS floats, `grad_build`), for MATS, for configs 1-2's
-kind at two blocks per SM (the C entry's choice, `csrc/grad_build.h`;
-`grad_launch_bound` reports it) and, for a light other than AREA over a
-RECTANGLE, with LIGHTS at every CAP (those of LIGHTS_CAPS in
-`csrc/megakernel_grad_lights.cu`); the table says which kind a scene
-is.
+0>`, `csrc/render_block.cuh`; the last argument strips no phase), one
+library.  K2 (`render_grad_kernel<CAP, ALL, MATS, 0, MIN_BLOCKS, LIGHTS>`,
+`csrc/render_grad.cuh`) has seventeen builds (`GRAD_BUILDS`), one library
+each, compiled the first time a call needs it: where each thread keeps its
+gradient (CAP: in shared memory up to SHARED_GRAD_MAX_PARAMS parameters,
+else in a local array of GRAD_CAPS floats), MATS, configs 1-2's kind at two
+blocks per SM, and LIGHTS at every CAP for a light other than AREA over a
+RECTANGLE.  `grad_build` alone decides which build a scene runs; the
+numbers it decides with are defined here and given to nvcc as defines
+(`GradBuild.defines`).
 
-`render_image_fast` / `render_tile_fast` are the JAX package's
-`custom_vjp`s (`megakernel.py:497-569`) as `torch.autograd.Function`s:
-forward K1, backward K2.
+`render_tile_fast` is the JAX package's `custom_vjp`s
+(`megakernel.py:497-569`) as one `torch.autograd.Function`: forward K1,
+backward K2; `render_image_fast` is it over the whole image, times 1/spp.
 
 KR (`trace_rays`, `csrc/trace_rays.cu`) traces a flat batch of given rays
 with K1's own per-bounce loop: the edge terms' straddle rays
@@ -45,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import operator
 from typing import NamedTuple
 
@@ -59,7 +59,7 @@ from ...utils import build
 
 _SOURCE = "megakernel"
 _GRAD_SOURCE = "megakernel_grad"
-_GRAD_LIGHTS_SOURCE = "megakernel_grad_lights"
+_REDUCE_SOURCE = "reduce_grad_rows"
 _RAYS_SOURCE = "trace_rays"
 
 
@@ -162,6 +162,108 @@ def _device_table(static: SceneStatic, device: torch.device) -> torch.Tensor:
                         device=device)
 
 
+# K2's numbers, each defined here once and given to nvcc as a define
+# (`GradBuild.defines`).  Its thread block (columns, rows) and the most
+# bounces a thread stores.
+GRAD_BLOCK = (16, 16)
+MAX_GRAD_BOUNCES = 8
+# CAP of the build that keeps each thread's gradient in its column of a
+# block-wide (n_params, threads) array in dynamic shared memory; any other
+# CAP is a local array of CAP floats, of the smallest of GRAD_CAPS that
+# holds the scene (352: every scene of a few objects; 4,096: the 256-sphere
+# scene, 13 N + 47 = 3,375 parameters).
+SHARED_GRAD = 0
+GRAD_CAPS = (352, 1024, 4096)
+# The shared build takes (threads + warps) x n_params floats, the columns
+# and the warps' partial sums: within the 232,448 bytes a block may have on
+# Hopper, 220 parameters.  Two blocks fit on one SM (233,472 bytes, of
+# which each resident block reserves 1 KB) up to 109: configs 1-2's kind
+# (spheres, rectangles and a Cornell box; matte, mirror and uniform colors;
+# path.cuh's ALL and MATS false) up to that size runs a shared build of its
+# own at `__launch_bounds__(threads, 2)` (at most 128 registers, some
+# spilled), which config 2 measured 17% faster than at (threads, 1) (an
+# H100).  Every other build takes one block per SM, and ALL: every shape.
+MAX_BLOCK_SMEM, SM_SMEM, BLOCK_RESERVED_SMEM = 232448, 233472, 1024
+_GRAD_THREADS = GRAD_BLOCK[0] * GRAD_BLOCK[1]
+_GRAD_PARAM_BYTES = 4 * (_GRAD_THREADS + _GRAD_THREADS // 32)
+SHARED_GRAD_MAX_PARAMS = MAX_BLOCK_SMEM // _GRAD_PARAM_BYTES
+TWO_BLOCK_MAX_PARAMS = (SM_SMEM // 2 - BLOCK_RESERVED_SMEM) \
+    // _GRAD_PARAM_BYTES
+
+
+def _cbool(b: bool) -> str:
+    return "true" if b else "false"
+
+
+class GradBuild(NamedTuple):
+    """One build of K2, `render_grad_kernel<cap, all_shapes, materials, 0,
+    min_blocks, lights>`: `csrc/megakernel_grad.cu` compiled with
+    `defines`, a library of its own."""
+    cap: int           # SHARED_GRAD or a local array's floats
+    all_shapes: bool   # path.cuh's ALL: every shape's code
+    materials: bool    # path.cuh's MATS: metal, glass, the uv textures
+    min_blocks: int    # the launch bound: blocks per SM
+    lights: bool       # the lights beyond AREA over a RECTANGLE
+
+    @property
+    def max_params(self) -> int:
+        """The most parameters the build takes."""
+        if self.min_blocks == 2:
+            return TWO_BLOCK_MAX_PARAMS
+        return SHARED_GRAD_MAX_PARAMS if self.cap == SHARED_GRAD \
+            else self.cap
+
+    @property
+    def kernel(self) -> str:
+        """The kernel's name as the profiler and `build.kernel_name` give
+        it."""
+        return (f"render_grad_kernel<{self.cap}, {_cbool(self.all_shapes)}, "
+                f"{_cbool(self.materials)}, 0, {self.min_blocks}, "
+                f"{_cbool(self.lights)}>")
+
+    @property
+    def defines(self) -> tuple:
+        """The nvcc defines that make this build of K2's sources."""
+        return (f"GRAD_CAP={self.cap}", f"GRAD_ALL={_cbool(self.all_shapes)}",
+                f"GRAD_MATS={_cbool(self.materials)}",
+                f"GRAD_MIN_BLOCKS={self.min_blocks}",
+                f"GRAD_LIGHTS={_cbool(self.lights)}",
+                f"GRAD_MAX_PARAMS={self.max_params}",
+                f"GRAD_BLOCK_X={GRAD_BLOCK[0]}",
+                f"GRAD_BLOCK_Y={GRAD_BLOCK[1]}",
+                f"SHARED_GRAD={SHARED_GRAD}",
+                f"MAX_GRAD_BOUNCES={MAX_GRAD_BOUNCES}")
+
+
+def grad_build(n_params: int, all_shapes: bool, materials: bool,
+               lights: bool) -> GradBuild:
+    """The K2 build a scene of `n_params` parameters and this kind
+    (`scene_table`'s flags) runs: the gradient in shared memory up to
+    SHARED_GRAD_MAX_PARAMS, else in the smallest of GRAD_CAPS that holds
+    it; configs 1-2's kind up to TWO_BLOCK_MAX_PARAMS at two blocks per SM
+    without ALL, every other scene at one with ALL; MATS and LIGHTS as the
+    scene.  Raises above the largest array."""
+    if n_params <= SHARED_GRAD_MAX_PARAMS:
+        cap = SHARED_GRAD
+    else:
+        cap = next((c for c in GRAD_CAPS if n_params <= c), None)
+        if cap is None:
+            raise ValueError(f"K2 takes at most {GRAD_CAPS[-1]} scene "
+                             f"parameters; the scene has {n_params}")
+    if cap == SHARED_GRAD and n_params <= TWO_BLOCK_MAX_PARAMS \
+            and not (all_shapes or materials or lights):
+        return GradBuild(SHARED_GRAD, False, False, 2, False)
+    return GradBuild(cap, True, bool(materials), 1, bool(lights))
+
+
+# Every K2 build, each once, as `grad_build` gives them: the two-block
+# build, then by LIGHTS, CAP and MATS.
+GRAD_BUILDS = tuple(sorted(
+    {grad_build(n, *kind) for n in (1, *GRAD_CAPS)
+     for kind in itertools.product((False, True), repeat=3)},
+    key=lambda b: (b.all_shapes, b.lights, b.cap, b.materials)))
+
+
 def _check_block(params, static, height, width, spp, max_bounces, row0,
                  image_height):
     """Raise on what the kernels do not take; return the param offsets."""
@@ -194,9 +296,10 @@ def render_block_plain(params: torch.Tensor, static: SceneStatic, height: int,
                                  cull=cull, early_exit=early_exit)
 
 
-def _bind(source: str, name: str, argtypes):
-    """The C entry point `name` of csrc/<source>.cu (built at first use)."""
-    fn = getattr(build.load(source), name)
+def _bind(lib, name: str, argtypes):
+    """The C entry point `name` of a library (`build.load`'s: a source name
+    or a (name, defines) pair), built at first use."""
+    fn = getattr(build.load(lib), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -205,9 +308,8 @@ def _bind(source: str, name: str, argtypes):
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # The C entries' argument types, in their order (csrc/*.cu `extern "C"`).
 K1_ARGTYPES = [_PTR] * 2 + [_INT] * 11 + [_PTR] * 3 + [_INT] * 8 + [_PTR]
-K2_ARGTYPES = [_PTR] * 2 + [_INT] * 12 + [_PTR] * 4 + [_INT] * 8 + [_PTR]
+K2_ARGTYPES = [_PTR] * 2 + [_INT] * 11 + [_PTR] * 4 + [_INT] * 8 + [_PTR]
 REDUCE_ARGTYPES = [_PTR, _INT, _INT, _PTR, _PTR]
-MIN_BLOCKS_ARGTYPES = [_INT] * 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -394,90 +496,16 @@ def render_grad_block_plain(params: torch.Tensor, static: SceneStatic,
     return grad
 
 
-# The local gradient-array sizes K2 is built for (`grad_build.h` CAPS), the
-# build that keeps the gradient in shared memory instead (SHARED_GRAD), the most parameters it takes
-# (SHARED_MAX_PARAMS: 256 + 8 floats a parameter in 232,448 bytes).
-GRAD_CAPS = (352, 1024, 4096)
-GRAD_BLOCK = (16, 16)   # K2's thread block: columns, rows
-SHARED_GRAD = 0
-SHARED_GRAD_MAX_PARAMS = 220
-# The largest K2 build with a light other than AREA over a RECTANGLE
-# (`megakernel_grad.cu` LIGHTS_MAX_CAP): such scenes take as many parameters
-# as any other.  `megakernel_grad.cu` builds LIGHTS for the shared array
-# and GRAD_CAPS[0]; `megakernel_grad_lights.cu` (LIGHTS_CAPS) for the rest.
-LIGHTS_MAX_CAP = 4096
-LIGHTS_CAPS = GRAD_CAPS[1:]
-
-
-def grad_cap(n_params: int, caps=GRAD_CAPS) -> int:
-    """The local K2 build that holds `n_params` parameters: the smallest
-    cap that holds them.  Raises above the largest."""
-    for cap in caps:
-        if n_params <= cap:
-            return cap
-    raise ValueError(f"K2 takes at most {max(caps)} scene parameters; the "
-                     f"scene has {n_params}")
-
-
-def grad_build(n_params: int) -> int:
-    """The K2 build a scene of `n_params` parameters runs: SHARED_GRAD (the
-    gradient in shared memory) up to SHARED_GRAD_MAX_PARAMS, else the local
-    build of `grad_cap`.  Raises above the largest."""
-    return SHARED_GRAD if n_params <= SHARED_GRAD_MAX_PARAMS \
-        else grad_cap(n_params)
+@functools.lru_cache(maxsize=None)
+def _grad_entry(b: GradBuild):
+    """The C entry of K2's build `b`, its library built at first use."""
+    return _bind((_GRAD_SOURCE, b.defines), "sail_render_grad_block",
+                 K2_ARGTYPES)
 
 
 @functools.lru_cache(maxsize=None)
-def _grad_entries():
-    lib = build.load(_GRAD_SOURCE)
-    limits = (ctypes.c_int * 16)()
-    lib.sail_grad_limits(limits)
-    n_caps = limits[3]
-    built = (tuple(limits[:2]), tuple(limits[4:4 + n_caps]),
-             limits[4 + n_caps], limits[5 + n_caps])
-    want = (GRAD_BLOCK, GRAD_CAPS, SHARED_GRAD_MAX_PARAMS, LIGHTS_MAX_CAP)
-    if built != want:
-        raise RuntimeError(f"K2 was built for (block, caps, the shared "
-                           f"build's parameters, the largest build with "
-                           f"lights) {built}, the wrapper expects {want}")
-    return (_bind(_GRAD_SOURCE, "sail_render_grad_block", K2_ARGTYPES),
-            _bind(_GRAD_SOURCE, "sail_reduce_grad_rows", REDUCE_ARGTYPES),
-            tuple(limits[:3]),
-            _bind(_GRAD_SOURCE, "sail_grad_min_blocks", MIN_BLOCKS_ARGTYPES))
-
-
-@functools.lru_cache(maxsize=None)
-def _grad_lights_entry():
-    """The C entry of K2's LIGHTS builds above GRAD_CAPS[0]
-    (`csrc/megakernel_grad_lights.cu`), built at the first lit scene that
-    needs it."""
-    lib = build.load(_GRAD_LIGHTS_SOURCE)
-    caps = (ctypes.c_int * 8)()
-    lib.sail_grad_lights_caps(caps)
-    built = tuple(caps[1:1 + caps[0]])
-    if built != LIGHTS_CAPS:
-        raise RuntimeError(f"K2's LIGHTS library was built for the local "
-                           f"arrays {built}, the wrapper expects "
-                           f"{LIGHTS_CAPS}")
-    return _bind(_GRAD_LIGHTS_SOURCE, "sail_render_grad_lights", K2_ARGTYPES)
-
-
-def grad_limits() -> dict:
-    """K2's compile-time bounds, read from the built library: its thread
-    block (columns, rows), the most bounces a thread can store, and the
-    local gradient-array sizes it is built for."""
-    bx, by, max_bounces = _grad_entries()[2]
-    return dict(block=(bx, by), max_bounces=max_bounces, caps=GRAD_CAPS)
-
-
-def grad_launch_bound(n_params: int, static: SceneStatic) -> int:
-    """The blocks per SM of the K2 build `render_grad_rows` launches for a
-    scene of `n_params` parameters (its launch bound), as the C entry
-    chooses it (`csrc/grad_build.h`): 2 for configs 1-2's kind where two
-    blocks' shared memory fit on an SM, else 1.  Reads the built library."""
-    table = scene_table(static)
-    return _grad_entries()[3](n_params, grad_build(n_params),
-                              int(table.all_shapes), int(table.materials))
+def _reduce_entry():
+    return _bind(_REDUCE_SOURCE, "sail_reduce_grad_rows", REDUCE_ARGTYPES)
 
 
 # The partials of K2's reduce: partial t sums rows t, t + 256, ... in order.
@@ -519,7 +547,7 @@ def reduce_grad_rows(rows: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no reduce for device {rows.device}")
     out = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
     with torch.cuda.device(rows.device):
-        err = _grad_entries()[1](
+        err = _reduce_entry()(
             rows.data_ptr(), rows.shape[0], rows.shape[1], out.data_ptr(),
             torch.cuda.current_stream(rows.device).cuda_stream)
     if err != 0:
@@ -570,11 +598,12 @@ def render_grad_rows(params: torch.Tensor, static: SceneStatic, g: Vec3,
                      max_bounces: int = C.MAX_BOUNCES, row0: int = 0,
                      image_height: int = None) -> torch.Tensor:
     """K2's first pass on the card: the (n_blocks, n_params) partial
-    gradients of its thread blocks (`grad_limits()["block"]` pixels each,
+    gradients of its thread blocks (GRAD_BLOCK pixels each,
     row-major over the block grid), which `reduce_grad_rows` sums into
     `render_grad_block`'s result.  A row holds only its block's pixels, so
     a cotangent on one pixel of every block gives each of those pixels'
-    own gradient.  Counts on `render_grad_block.launches`."""
+    own gradient.  Launches the build `grad_build` picks; counts on
+    `render_grad_block.launches`."""
     image_height = height if image_height is None else image_height
     off = _check_grad_block(params, static, g, height, width, spp,
                             max_bounces, row0, image_height)
@@ -582,22 +611,20 @@ def render_grad_rows(params: torch.Tensor, static: SceneStatic, g: Vec3,
     if not params.is_cuda:
         raise TypeError("render_grad_rows runs K2 on the card: params must "
                         "be a CUDA tensor")
-    grad_fn, _, (bx, by, max_bounces_cap), _ = _grad_entries()
-    if max_bounces > max_bounces_cap:
-        raise ValueError(f"K2 takes at most {max_bounces_cap} bounces; got "
+    if max_bounces > MAX_GRAD_BOUNCES:
+        raise ValueError(f"K2 takes at most {MAX_GRAD_BOUNCES} bounces; got "
                          f"{max_bounces}")
-    cap = grad_build(off.size)
-    if table.lights and cap in LIGHTS_CAPS:
-        grad_fn = _grad_lights_entry()
+    grad_fn = _grad_entry(grad_build(off.size, table.all_shapes,
+                                     table.materials, table.lights))
     dev = params.device
+    bx, by = GRAD_BLOCK
     n_blocks = -(-width // bx) * -(-height // by)
     rows = torch.empty((n_blocks, off.size), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = grad_fn(
             params.data_ptr(), _device_table(static, dev).data_ptr(),
-            *_counts(static), off.camera, off.size, cap,
-            int(table.all_shapes), int(table.materials), int(table.lights),
-            g.x.data_ptr(),
+            *_counts(static), off.camera, off.size, int(table.all_shapes),
+            int(table.materials), int(table.lights), g.x.data_ptr(),
             g.y.data_ptr(), g.z.data_ptr(), rows.data_ptr(), height, width,
             spp, _int32(seed), _int32(sample0), max_bounces, row0,
             image_height, torch.cuda.current_stream(dev).cuda_stream)
@@ -611,26 +638,6 @@ render_grad_block.launches = 0
 
 
 # ------------------------------------------------- autograd Functions ----
-
-class _RenderImageFast(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, params, seed, static, height, width, spp, max_bounces):
-        ctx.save_for_backward(params)
-        ctx.args = (seed, static, height, width, spp, max_bounces)
-        acc = render_block(params, static, height, width, spp, seed, 0,
-                           max_bounces)
-        return tuple(c * (1.0 / spp) for c in acc)
-
-    @staticmethod
-    def backward(ctx, gx, gy, gz):
-        (params,) = ctx.saved_tensors
-        seed, static, height, width, spp, max_bounces = ctx.args
-        # the forward returned mean = sum/spp: scale the cotangent onto the sum
-        g = Vec3(*((c * (1.0 / spp)).contiguous() for c in (gx, gy, gz)))
-        d = render_grad_block(params.detach(), static, g, height, width, spp,
-                              seed, 0, max_bounces)
-        return (d,) + (None,) * 6
-
 
 class _RenderTileFast(torch.autograd.Function):
     @staticmethod
@@ -660,9 +667,11 @@ def render_image_fast(params: torch.Tensor, seed, static: SceneStatic,
                       max_bounces: int = C.MAX_BOUNCES) -> Vec3:
     """Mean image over `spp` samples through K1, differentiable in `params`
     through K2 (the same estimator: the backward re-traces the same paths
-    with the same RNG).  `seed` takes no gradient."""
-    return Vec3(*_RenderImageFast.apply(params, seed, static, height, width,
-                                        spp, max_bounces))
+    with the same RNG): `render_tile_fast` over the whole image, times
+    1/spp.  `seed` takes no gradient."""
+    acc = render_tile_fast(params, seed, 0, 0, static, height, width, spp,
+                           height, max_bounces)
+    return Vec3(*(c * (1.0 / spp) for c in acc))
 
 
 def render_tile_fast(params: torch.Tensor, seed, sample0, row0,

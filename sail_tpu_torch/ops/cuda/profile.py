@@ -368,8 +368,10 @@ render_block_stripped.launches = 0
 
 # ------------------------------------------------------------ K2 phases ----
 # csrc/profile_grad.cu: K2's own template (csrc/render_grad.cuh) for configs
-# 1-2's scene kind with a phase stripped (adjoint.cuh's GRAD_NO_* bits).
-_GRAD_SOURCE = "profile_grad"
+# 1-2's scene kind with a phase stripped (adjoint.cuh's GRAD_NO_* bits),
+# compiled with the defines of the production build that kind runs, at two
+# blocks per SM.
+GRAD_LIBRARY = ("profile_grad", mk.grad_build(1, False, False, False).defines)
 GRAD_STRIPS = {"forward_only": 0, "no_adjoint": 1}
 GRAD_PROFILE_ARGTYPES = [_INT] + [_PTR] * 2 + [_INT] * 10 + [_PTR] * 4 \
     + [_INT] * 8 + [_PTR]
@@ -377,7 +379,7 @@ GRAD_PROFILE_ARGTYPES = [_INT] + [_PTR] * 2 + [_INT] * 10 + [_PTR] * 4 \
 
 @functools.lru_cache(maxsize=None)
 def _grad_entry():
-    return mk._bind(_GRAD_SOURCE, "sail_render_grad_profile",
+    return mk._bind(GRAD_LIBRARY, "sail_render_grad_profile",
                     GRAD_PROFILE_ARGTYPES)
 
 

@@ -72,7 +72,7 @@ def k2_pixels(params, static, g: Vec3, rows: int, cols: int, spp: int, seed,
     """K2's (rows, cols, n_params) contributions of each pixel, from its
     block partials (`render_grad_rows`) with the cotangent on one pixel of
     every block at a time: one launch per pixel of a block."""
-    bx, by = mk.grad_limits()["block"]
+    bx, by = mk.GRAD_BLOCK
     gx = -(-cols // bx)
     out = torch.zeros((rows, cols, params.numel()), dtype=torch.float32,
                       device=params.device)

@@ -7,17 +7,20 @@ kernels a change must leave as they were.
     python3 -m sail_tpu_torch.tools.k2_compare --parent build/parent_csrc \
         [--out COMPARE.json] [--no-k2]
 
-1. Builds the parent's megakernel.cu, megakernel_grad.cu, profile.cu and
-   profile_grad.cu with `build.NVCC_FLAGS` into build/parent/ (reused while
-   the parent's sources are the same), and this tree's through
-   `utils/build.py`, one nvcc each, all started together.
-2. SASS: `cuobjdump -sass` of both trees' libraries.  Each kernel of K2
-   (`render_grad_kernel<...>`, production and stripped; a parent without
-   the LIGHTS argument names `<..., false>` one argument shorter) and of
-   K5b/K5c (`alu_peak_kernel<...>`, `alu_peak_ilp8_kernel`) that both
-   trees build must have the same instructions (symbols `_Z...` masked: they
-   carry the file's anonymous-namespace hash) and the same `-Xptxas -v`
-   resources, or it is listed under `differ`.  K1's builds
+1. Builds the parent's libraries into build/parent/ (reused while the
+   parent's sources are the same) and this tree's, both through
+   `utils/build.py`, one nvcc each, as many at once as the host has
+   cores: megakernel.cu and profile.cu, and with `--no-k2` off,
+   megakernel_grad.cu once per K2 build (`megakernel.GRAD_BUILDS`, each
+   with its build's defines), reduce_grad_rows.cu and profile_grad.cu (with
+   the defines of the two-block build).  Both trees' sources take this
+   tree's defines.
+2. SASS: `cuobjdump -sass` of both trees' libraries, library by library.
+   Each kernel of K2 (`render_grad_kernel<...>`, production and stripped)
+   and of K5b/K5c (`alu_peak_kernel<...>`, `alu_peak_ilp8_kernel`) that
+   both trees build must have the same instructions (symbols `_Z...`
+   masked: they carry the file's anonymous-namespace hash) and the same
+   `-Xptxas -v` resources, or it is listed under `differ`.  K1's builds
    (`render_block_kernel<...>`, production and stripped), K5a's
    (`isect_only_kernel<...>`) and the reduce are listed with each tree's
    registers, stack and spills, and whether their SASS changed.
@@ -45,15 +48,14 @@ A parent's entry is bound from its own source: the parameters of its
 `sail_render_block`, `sail_render_block_stripped`, `sail_isect_only` and
 `sail_render_grad_block`, read by name, each given this tree's value of
 that name (`parent_args`); a parameter this tool does not know stops it.
-Its K2 build (`cap`) comes from its `sail_grad_limits`: block columns and
-rows, bounces, the number of local array sizes, the sizes, then, where the
-parent has the shared-memory build, the most parameters that build takes.
+The parent's K2 library for a scene is the one this tree's `grad_build`
+picks (`k2_library`): the parent must have this tree's layout, one
+library per K2 build.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import re
@@ -69,8 +71,7 @@ from sail_tpu_torch.ops.cuda import profile as pf
 from sail_tpu_torch.tools.many_object_bench import card
 from sail_tpu_torch.utils import build
 
-SOURCES = ("megakernel", "megakernel_grad", "profile", "profile_grad")
-K2_SOURCES = ("megakernel_grad", "profile_grad")
+K1_LIBRARIES = ("megakernel", "profile")
 # the kernels whose SASS must not change (K2's builds, K5b, K5c), and those
 # listed with their resources and whether their SASS changed (K1's builds,
 # K5a, the reduce)
@@ -129,46 +130,31 @@ def parent_args(params: list, values: dict) -> tuple:
             [values[n] for _, n in params])
 
 
-def parent_cap(limits: list, n_params: int) -> int:
-    """The parent's build for `n_params` from its `sail_grad_limits` (the
-    buffer filled with -1 beforehand): 0, its shared-memory build, where it
-    has one that holds them, else the smallest local size that does."""
-    n_caps = limits[3]
-    caps = tuple(limits[4:4 + n_caps])
-    shared_max = limits[4 + n_caps]
-    if shared_max >= 0 and n_params <= shared_max:
-        return 0
-    return mk.grad_cap(n_params, caps)
+def k2_library(n_params: int, static) -> tuple:
+    """The K2 library a scene runs, in either tree: megakernel_grad.cu with
+    the defines of this tree's `grad_build` for it."""
+    t = mk.scene_table(static)
+    return ("megakernel_grad", mk.grad_build(n_params, t.all_shapes,
+                                             t.materials, t.lights).defines)
 
 
-def build_parent(parent_dir: str, out_dir: str, names=SOURCES) -> dict:
-    """Compile the parent's sources, all at once, into libraries named
-    after a hash of the flags and the parent's files (an existing one is
-    reused); {source: library}."""
-    os.makedirs(out_dir, exist_ok=True)
-    digest = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
-    for f in sorted(os.listdir(parent_dir)):
-        with open(os.path.join(parent_dir, f), "rb") as fh:
-            digest.update(f.encode() + fh.read())
-    tag = digest.hexdigest()[:16]
-    jobs, libs = {}, {}
-    for name in names:
-        lib = libs[name] = os.path.join(out_dir, f"lib{name}-{tag}.so")
-        if os.path.exists(lib):
-            continue
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib + ".tmp",
-               os.path.join(parent_dir, f"{name}.cu")]
-        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True)
-    for name, proc in jobs.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building the parent's {name}:"
-                               f"\n{out}\n{err}")
-        with open(libs[name] + ".log", "w") as f:
-            f.write(out + err)
-        os.replace(libs[name] + ".tmp", libs[name])
-    return libs
+def k2_libraries() -> tuple:
+    """Every K2 library: each build's, the reduce's and the stripped
+    builds'."""
+    return (*(("megakernel_grad", b.defines) for b in mk.GRAD_BUILDS),
+            "reduce_grad_rows", pf.GRAD_LIBRARY)
+
+
+def build_parent(parent_dir: str, out_dir: str, libs) -> dict:
+    """Compile the parent's sources into `libs` (`build.build`'s: a source
+    name or a (name, defines) pair) in `out_dir`, as `build.build` does this
+    tree's (an existing one is reused); {lib: library}."""
+    here = build.CSRC_DIR, build.BUILD_DIR
+    build.CSRC_DIR, build.BUILD_DIR = parent_dir, out_dir
+    try:
+        return dict(zip(libs, build.build(*libs)))
+    finally:
+        build.CSRC_DIR, build.BUILD_DIR = here
 
 
 def sass(lib: str) -> dict:
@@ -187,40 +173,36 @@ def sass(lib: str) -> dict:
     return out
 
 
-def parent_name(kernel: str, parent: set) -> str:
-    """A kernel's name in a parent that built it with one template argument
-    fewer: K2's `render_grad_kernel<CAP, ALL, MATS, STRIP, MIN_BLOCKS,
-    false>` is a parent's `<CAP, ALL, MATS, STRIP, MIN_BLOCKS>` (the LIGHTS
-    argument, false in every build a parent had)."""
-    short = re.sub(r"^(render_grad_kernel<(?:[^,>]+, ){4}[^,>]+), false>$",
-                   r"\1>", kernel)
-    return short if short != kernel and short in parent else kernel
+def compare_kernels(label: str, old: dict, new: dict, old_res: dict,
+                    new_res: dict, out: dict) -> None:
+    """Add one library's verdicts to `out` (`compare_sass`'s): each
+    kernel of SAME_SASS both trees build under `same` or `differ` (its SASS
+    and resources equal or not), each of K1_SASS under `k1` with both
+    trees' resources and whether its SASS changed.  `old` and `new` map a
+    kernel's name to its SASS, `*_res` to its resources."""
+    for kernel in sorted(set(old) | set(new)):
+        if K1_SASS.match(kernel):
+            out["k1"][f"{kernel} ({label})"] = {
+                "parent": old_res.get(kernel), "new": new_res.get(kernel),
+                "sass_changed": old.get(kernel) != new.get(kernel)}
+        elif SAME_SASS.match(kernel) and kernel in old and kernel in new:
+            equal = old[kernel] == new[kernel] \
+                and old_res.get(kernel) == new_res.get(kernel)
+            out["same" if equal else "differ"].append(f"{kernel} ({label})")
 
 
 def compare_sass(parent_libs: dict, libs: dict) -> dict:
     """`same` and `differ`: the kernels of SAME_SASS both trees build;
     `k1`: each K1, K5a and reduce kernel's resources in both trees and
-    whether its SASS changed."""
-    same, differ, k1 = [], [], {}
-    for name in parent_libs:
-        old, new = sass(parent_libs[name]), sass(libs[name])
-        with open(parent_libs[name] + ".log") as f:
+    whether its SASS changed.  Library by library: `parent_libs` and
+    `libs` map the same keys to each tree's library."""
+    out = {"same": [], "differ": [], "k1": {}}
+    for lib, path in parent_libs.items():
+        with open(path + ".log") as f:
             old_res = build.parse_resource_usage(f.read())
-        new_res = build.resource_usage(name)
-        renamed = {parent_name(k, set(old)): k for k in new}
-        new = {parent_name(k, set(old)): v for k, v in new.items()}
-        new_res = {parent_name(k, set(old)): v for k, v in new_res.items()}
-        for kernel in sorted(set(old) | set(new)):
-            if K1_SASS.match(kernel):
-                k1[f"{kernel} ({name})"] = {
-                    "parent": old_res.get(kernel), "new": new_res.get(kernel),
-                    "sass_changed": old.get(kernel) != new.get(kernel)}
-            elif SAME_SASS.match(kernel) and kernel in old and kernel in new:
-                equal = old[kernel] == new[kernel] \
-                    and old_res.get(kernel) == new_res.get(kernel)
-                (same if equal else differ).append(
-                    f"{renamed.get(kernel, kernel)} ({name})")
-    return {"same": same, "differ": differ, "k1": k1}
+        compare_kernels(build._spec(lib)[0], sass(path), sass(libs[lib]),
+                        old_res, build.resource_usage(lib), out)
+    return out
 
 
 def _events(fn):
@@ -331,25 +313,21 @@ def _k1_new(params, static, spp, strip=None):
     return torch.stack(tuple(img))
 
 
-def parent_k2(parent_dir: str, lib_path: str):
+def parent_k2(parent_dir: str, libs: dict):
     """The parent's K2 at the step's shape: its C entries, bound from its
-    source, and its build for the scene's parameters.  Returns (rows, the
-    parent's first pass as a function of (params, static, g, spp) giving
-    the (n_blocks, n_params) rows; reduce, its second pass on given rows;
-    its limits)."""
+    source, each scene through its build's library (`k2_library`).
+    Returns (rows, the parent's first pass as a function of (params,
+    static, g, spp) giving the (n_blocks, n_params) rows; reduce, its
+    second pass on given rows)."""
     with open(os.path.join(parent_dir, "megakernel_grad.cu")) as f:
         params_decl = entry_params(f.read())
-    lib = ctypes.CDLL(lib_path)
-    limits = (ctypes.c_int * 32)(*([-1] * 32))
-    lib.sail_grad_limits(limits)
-    limits = list(limits)
-    red = lib.sail_reduce_grad_rows
+    red = ctypes.CDLL(libs["reduce_grad_rows"]).sail_reduce_grad_rows
     red.argtypes, red.restype = mk.REDUCE_ARGTYPES, ctypes.c_int
 
     def rows_of(params, static, g, spp):
         dev = params.device
         n = params.numel()
-        bx, by = limits[0], limits[1]
+        bx, by = mk.GRAD_BLOCK
         rows = torch.empty((-(-SIZE // bx) * -(-SIZE // by), n),
                            dtype=torch.float32, device=dev)
         t = mk.scene_table(static)
@@ -358,7 +336,7 @@ def parent_k2(parent_dir: str, lib_path: str):
         values = dict(
             params=params.data_ptr(),
             table=mk._device_table(static, dev).data_ptr(), **counts,
-            cam=t.offsets.camera, n_params=n, cap=parent_cap(limits, n),
+            cam=t.offsets.camera, n_params=n,
             all_shapes=int(t.all_shapes), materials=int(t.materials),
             lights=int(t.lights),
             gx=g.x.data_ptr(), gy=g.y.data_ptr(), gz=g.z.data_ptr(),
@@ -366,7 +344,7 @@ def parent_k2(parent_dir: str, lib_path: str):
             sample0=0, max_bounces=BOUNCES, row0=0, image_height=SIZE,
             stream=torch.cuda.current_stream(dev).cuda_stream)
         argtypes, args = parent_args(params_decl, values)
-        grad = lib.sail_render_grad_block
+        grad = ctypes.CDLL(libs[k2_library(n, static)]).sail_render_grad_block
         grad.argtypes, grad.restype = argtypes, ctypes.c_int
         err = grad(*args)
         if err != 0:
@@ -383,7 +361,7 @@ def parent_k2(parent_dir: str, lib_path: str):
             raise RuntimeError(f"the parent's reduce failed: cudaError_t "
                                f"{err}")
         return out
-    return rows_of, reduce, limits
+    return rows_of, reduce
 
 
 def queued_ms(fn, *args, n: int = 20, runs: int = 1, **kw) -> float:
@@ -441,8 +419,7 @@ def _row(label: str, r: dict) -> dict:
 def run(parent_dir: str, with_k2: bool = True) -> dict:
     dev = torch.device("cuda", 0)
     root = os.path.dirname(build.BUILD_DIR)
-    names = SOURCES if with_k2 else tuple(n for n in SOURCES
-                                          if n not in K2_SOURCES)
+    names = K1_LIBRARIES + (k2_libraries() if with_k2 else ())
     parent_libs = build_parent(parent_dir, os.path.join(root, "parent"),
                                names)
     libs = dict(zip(names, build.build(*names)))
@@ -463,11 +440,9 @@ def run(parent_dir: str, with_k2: bool = True) -> dict:
                                              BOUNCES))
     out["k1"]["k5a"] = _row("k5a", dict(r, scene=K5A_SCENE, spp=SPP))
     if with_k2:
-        out["resources"] = {k: v for k, v in build.resource_usage(
-            "megakernel_grad").items() if k.startswith("render_grad")}
-        out["resources_profile"] = build.resource_usage("profile_grad")
-        old_rows, old_reduce, old_limits = parent_k2(
-            parent_dir, parent_libs["megakernel_grad"])
+        out["resources"] = {k: v for lib in k2_libraries()
+                            for k, v in build.resource_usage(lib).items()}
+        old_rows, old_reduce = parent_k2(parent_dir, parent_libs)
         out["steps"], out["k2_rows"], out["reduce"] = {}, {}, {}
         for name, spp in CASES:
             params, static = scene_of(name).pack()
@@ -480,9 +455,9 @@ def run(parent_dir: str, with_k2: bool = True) -> dict:
                                                       SIZE, spp, 0, 0,
                                                       BOUNCES))
             r["spp"] = spp
-            r["parent_build"] = parent_cap(old_limits, params.numel())
-            r["build"] = mk.grad_build(params.numel())
-            r["min_blocks"] = mk.grad_launch_bound(params.numel(), static)
+            t = mk.scene_table(static)
+            r["build"] = mk.grad_build(params.numel(), t.all_shapes,
+                                       t.materials, t.lights).kernel
             r["n_params"] = params.numel()
             out["steps"][f"{name} spp{spp}"] = _row(name, r)
             # K2's first pass alone, and the reduce on the same rows

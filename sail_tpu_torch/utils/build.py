@@ -1,12 +1,17 @@
 """Build the port's CUDA kernels from the repository's sources.
 
-Each `csrc/<name>.cu` compiles with nvcc into a shared library with a plain
-C interface under `<repo>/build/kernels/`, at first use, and loads with
-`ctypes`.  The library's file name carries a hash of the flags, the source
-and every `csrc/` header it includes (`#include "..."`, followed
-recursively), so an edited source or header rebuilds and a stale library is
-never loaded.  `build(*names)` starts one nvcc per library at once.  There
-is no fallback: without nvcc the build raises.
+A library is `csrc/<name>.cu` compiled with nvcc, with a tuple of defines
+(`"NAME=VALUE"`, given to nvcc as `-DNAME=VALUE`) or none: a source name
+alone, or a `(name, defines)` pair.  One source may make many libraries, one
+per set of defines (K2: one per build, `ops/cuda/megakernel.py`
+`grad_build`).  Each compiles into a shared library with a plain C
+interface under `<repo>/build/kernels/`, at first use, and loads with
+`ctypes`.  The library's file name carries the defines' values and a hash of
+the flags, the defines, the source and every `csrc/` header it includes
+(`#include "..."`, followed recursively), so an edited source or header
+rebuilds and a stale library is never loaded.  `build(*libs)` runs one nvcc
+per library, as many at once as the host has cores.  There is no fallback:
+without nvcc the build raises.
 
 `load_host` builds a C++ source of the repository for the host the same
 way, with g++, into `<repo>/build/native/` (the native image codec).
@@ -65,51 +70,68 @@ def sources(name: str) -> list:
     return out
 
 
-def _library_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _spec(lib) -> tuple:
+    """(source name, defines) of a library given as a name or a pair."""
+    return (lib, ()) if isinstance(lib, str) else (lib[0], tuple(lib[1]))
+
+
+def _library_path(lib) -> str:
+    name, defines = _spec(lib)
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    digest = hashlib.sha256(" ".join(flags).encode())
     for path in sources(name):
         with open(path, "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    tag = "".join(f"-{d.split('=', 1)[-1]}" for d in defines)
+    return os.path.join(BUILD_DIR,
+                        f"lib{name}{tag}-{digest.hexdigest()[:16]}.so")
 
 
-def build(*names: str) -> list:
-    """Compile each csrc/<name>.cu whose current build does not exist, one
-    nvcc each, all started together; return the libraries' paths.  nvcc's
-    resource report (`-Xptxas -v`) is kept beside each library as
-    `<library>.log`."""
-    libs = [_library_path(n) for n in names]
-    jobs = []
-    for name, lib in zip(names, libs):
-        if os.path.exists(lib):
-            continue
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, f"{name}.cu")]
-        jobs.append((name, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for name, lib, tmp, proc in jobs:
+def build(*libs) -> list:
+    """Compile each library (a source name or a `(name, defines)` pair)
+    whose current build does not exist, one nvcc each, as many at once as
+    the host has cores; return the libraries' paths.  nvcc's resource
+    report (`-Xptxas -v`) is kept beside each library as `<library>.log`."""
+    paths = [_library_path(lib) for lib in libs]
+    todo = [(_spec(lib), path) for lib, path in zip(libs, paths)
+            if not os.path.exists(path)]
+    running, failed = [], []
+
+    def finish(job):
+        (name, _), path, tmp, proc = job
         out, err = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}) building {name}:"
-                          f"\n{out}\n{err}")
-            continue
-        with open(f"{lib}.log", "w") as f:
+            failed.append(f"nvcc failed ({proc.returncode}) building {name} "
+                          f"{path}:\n{out}\n{err}")
+            return
+        with open(f"{path}.log", "w") as f:
             f.write(out + err)
-        os.replace(tmp, lib)
+        os.replace(tmp, path)
+
+    for (name, defines), path in todo:
+        if len(running) >= len(os.sched_getaffinity(0)):
+            finish(running.pop(0))
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        running.append(((name, defines), path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for job in running:
+        finish(job)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return libs
+    return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu once per process."""
+def load(lib) -> ctypes.CDLL:
+    """Build (if needed) and load a library (a source name or a
+    `(name, defines)` pair) once per process."""
+    path = _library_path(lib)
     with _lock:
-        if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(build(name)[0])
-        return _loaded[name]
+        if path not in _loaded:
+            _loaded[path] = ctypes.CDLL(build(lib)[0])
+        return _loaded[path]
 
 
 # `native/Makefile`'s flags but -march=native: the library's arithmetic is
@@ -195,11 +217,11 @@ def kernel_name(symbol: str) -> str:
             return name
 
 
-def resource_usage(name: str) -> dict:
+def resource_usage(lib) -> dict:
     """{kernel name: registers, spill bytes, stack and static shared memory}
-    for each kernel in the library, from the `-Xptxas -v` report of its
-    build."""
-    with open(_library_path(name) + ".log") as f:
+    for each kernel in the library (a source name or a `(name, defines)`
+    pair), from the `-Xptxas -v` report of its build."""
+    with open(_library_path(lib) + ".log") as f:
         return parse_resource_usage(f.read())
 
 

@@ -6,7 +6,8 @@ package blocks until `t` is ready.  `profile_trace` runs
 `torch.profiler` (the CPU and, where there is a card, CUDA activities)
 and writes a Chrome trace, in which the program's own host ranges
 (`span`: the train step, the edge terms, the repack, the display) show
-beside torch's operations.  The JAX package's `xla_flops` and `mfu`
+beside torch's operations; `kernel_launches` and `kernels_named` count a
+finished run's launches and kernels.  The JAX package's `xla_flops` and `mfu`
 count XLA's compiled operations and are not ported; the port's count of
 the kernels' work is `utils/opcount.live_ops`.
 """
@@ -129,6 +130,15 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return inner
     return wrap
+
+
+def kernels_named(prof, names) -> tuple:
+    """How many kernels whose name holds each of `names` the device ran in
+    a finished torch.profiler run: a CUDA graph's kernels, which no wrapper
+    counts, included."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ran = [e.name for e in prof.events() if e.device_type == cuda]
+    return tuple(sum(part in n for n in ran) for part in names)
 
 
 def kernel_launches(prof) -> dict:

@@ -1,6 +1,8 @@
 """`sail_tpu_torch.utils.build` without nvcc: the library name follows
-every header a source includes, and the `-Xptxas -v` report is read per
-kernel.  (The build itself runs on the card: `python3 chip_smoke.py`.)"""
+every header a source includes and the defines a library is built with,
+no more nvcc processes run than the host has cores, and the `-Xptxas -v`
+report is read per kernel.  (The build itself runs on the card:
+`python3 chip_smoke.py`.)"""
 import os
 
 import pytest
@@ -35,6 +37,59 @@ def test_editing_any_included_file_changes_the_library(csrc, edited):
     with open(os.path.join(build.CSRC_DIR, edited), "a") as f:
         f.write("int edited;\n")
     assert build._library_path("k") != before
+
+
+def test_defines_name_the_library(csrc):
+    """A library's defines go into its hash and its file name: each set of
+    defines of one source is a library of its own, its values in the name,
+    and a library with none keeps the source's name alone."""
+    plain = build._library_path("k")
+    a = build._library_path(("k", ("CAP=352", "ALL=true")))
+    b = build._library_path(("k", ("CAP=1024", "ALL=true")))
+    assert len({plain, a, b}) == 3
+    assert os.path.basename(a).startswith("libk-352-true-")
+    assert os.path.basename(plain).startswith("libk-")
+    assert build._library_path(("k", ())) == plain
+    assert build._library_path(("k", ("CAP=352", "ALL=true"))) == a
+
+
+class _FakeNvcc:
+    """subprocess.Popen for nvcc: writes the library it is asked for when
+    waited on, and counts how many run at once."""
+    running = most = 0
+    defines = []
+
+    def __init__(self, cmd, **kw):
+        self.out = cmd[cmd.index("-o") + 1]
+        _FakeNvcc.defines.append([c for c in cmd if c.startswith("-D")])
+        _FakeNvcc.running += 1
+        _FakeNvcc.most = max(_FakeNvcc.most, _FakeNvcc.running)
+        self.returncode = 0
+
+    def communicate(self):
+        _FakeNvcc.running -= 1
+        with open(self.out, "w") as f:
+            f.write("lib")
+        return "ptxas info    : Used 1 registers\n", ""
+
+
+def test_build_runs_no_more_nvcc_than_cores(csrc, monkeypatch):
+    """Many libraries requested at once (every K2 build) run one nvcc
+    each, each with its defines, no more at a time than the host has
+    cores; a library that exists is not built again."""
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "Popen", _FakeNvcc)
+    monkeypatch.setattr(build.os, "sched_getaffinity", lambda pid: {0, 1})
+    for name, value in (("defines", []), ("running", 0), ("most", 0)):
+        monkeypatch.setattr(_FakeNvcc, name, value)
+    libs = [("k", (f"CAP={c}",)) for c in (0, 352, 1024, 4096)] + ["k"]
+    paths = build.build(*libs)
+    assert _FakeNvcc.most == 2 and _FakeNvcc.running == 0
+    assert sorted(_FakeNvcc.defines) == sorted(
+        [[f"-DCAP={c}"] for c in (0, 352, 1024, 4096)] + [[]])
+    assert all(os.path.exists(p) and os.path.exists(p + ".log")
+               for p in paths)
+    assert build.build(*libs) == paths and len(_FakeNvcc.defines) == 5
 
 
 def test_the_shipped_kernels_hash_their_headers():
@@ -102,25 +157,29 @@ def test_build_without_nvcc_raises(csrc, monkeypatch):
         build.build("k")
 
 
+def _k2_build(params, static):
+    from sail_tpu_torch.ops.cuda import megakernel as mk
+    t = mk.scene_table(static)
+    return mk.grad_build(params.numel(), t.all_shapes, t.materials, t.lights)
+
+
 def test_largest_scene_of_the_slice_fits_k2():
     """K2 sums each thread's gradient in a compile-time array, built for a
-    few sizes (`megakernel_grad.cu` CAPS, which the wrapper's GRAD_CAPS
-    repeats): a scene of 7 objects of each of the first slice's shapes,
-    every one with its own material and texture, every rectangle a light,
-    fits the smallest; the 256-sphere scene of the many-object benchmark
-    (3,375 parameters) fits the largest."""
-    import re
+    few sizes (GRAD_CAPS, each given to nvcc as the build's GRAD_CAP): a
+    scene of 7 objects of each of the first slice's shapes, every one with
+    its own material and texture, every rectangle a light, fits the
+    smallest; the 256-sphere scene of the many-object benchmark (3,375
+    parameters) fits the largest."""
     from sail_tpu_torch import (AreaLight, Camera, Cornellbox, Matte, Rectangle,
                                 Scene, Sphere, UniformColor, scenes)
     from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.scene.scene import param_offsets
-    with open(os.path.join(build.CSRC_DIR, "megakernel_grad.cu")) as f:
-        caps = tuple(int(c) for c in re.search(
-            r"constexpr int CAPS\[\] = \{([\d, ]+)\};", f.read()).group(1)
-            .split(","))
-    assert caps == mk.GRAD_CAPS
+    caps = mk.GRAD_CAPS
+    assert caps == (352, 1024, 4096)
     cap = caps[0]
-    assert mk.grad_cap(scenes.many_spheres(256).pack()[0].numel()) == caps[-1]
+    largest = _k2_build(*scenes.many_spheres(256).pack())
+    assert largest.cap == caps[-1]
+    assert f"GRAD_CAP={caps[-1]}" in largest.defines
     scene = Scene()
     scene.add(Camera((0.0, 0.0, -2.5), (0.0, 0.0, 0.0)))
     for k in range(7):
@@ -132,9 +191,10 @@ def test_largest_scene_of_the_slice_fits_k2():
                                       (0.3, 0.9 - 0.1 * k, 0.3), Matte(),
                                       UniformColor((1.0, 1.0, 1.0))),
                             (1.0, 1.0, 1.0)))
-    _, static = scene.pack()
+    params, static = scene.pack()
     size = param_offsets(static).size
     assert size == 336 <= cap
+    assert _k2_build(params, static).cap == cap
 
 
 def test_ctypes_bindings_match_the_c_entries():
@@ -149,10 +209,9 @@ def test_ctypes_bindings_match_the_c_entries():
     for source, name, argtypes in (
             ("megakernel.cu", "sail_render_block", mk.K1_ARGTYPES),
             ("megakernel_grad.cu", "sail_render_grad_block", mk.K2_ARGTYPES),
-            ("megakernel_grad.cu", "sail_reduce_grad_rows",
+            ("reduce_grad_rows.cu", "sail_reduce_grad_rows",
              mk.REDUCE_ARGTYPES),
-            ("megakernel_grad.cu", "sail_grad_min_blocks",
-             mk.MIN_BLOCKS_ARGTYPES),
+            ("trace_rays.cu", "sail_trace_rays", mk.KR_ARGTYPES),
             ("profile.cu", "sail_isect_only", pf.ISECT_ARGTYPES),
             ("profile.cu", "sail_alu_peak", pf.ALU_ARGTYPES),
             ("profile.cu", "sail_alu_peak_ilp8", pf.ALU_ILP8_ARGTYPES),
@@ -191,20 +250,23 @@ def test_profile_constants_match_the_source():
     for name in ("megakernel", "profile"):
         assert "render_block.cuh" in {os.path.basename(p)
                                       for p in build.sources(name)}
-    # ... and K2's are K2's (render_grad.cuh, which takes its builds'
-    # limits and launch bounds from grad_build.h), its variants in the
-    # wrapper's order
+    # ... and K2's are K2's (render_grad.cuh, whose builds' numbers come
+    # as defines), its variants in the wrapper's order; K2's reduce holds
+    # none of K2's code
     for name in ("megakernel_grad", "profile_grad"):
-        assert {"render_grad.cuh", "grad_build.h"} <= {
+        assert "render_grad.cuh" in {
             os.path.basename(p) for p in build.sources(name)}
+    assert [os.path.basename(p) for p in build.sources("reduce_grad_rows")] \
+        == ["reduce_grad_rows.cu"]
     with open(os.path.join(build.CSRC_DIR, "profile_grad.cu")) as f:
         variants = dict(re.findall(r"VARIANT_(\w+) = (\d+)", f.read()))
     assert {k.lower(): int(v) for k, v in variants.items()} == \
         pf.GRAD_STRIPS
 
 
-# The K2 entry of the tree before the shared-memory build (no all_shapes),
-# as a parent's source gives it to tools/k2_compare.py.
+# The K2 entry of a tree before one library per build (a `cap` argument,
+# no all_shapes nor lights), as a parent's source gives it to
+# tools/k2_compare.py.
 _PARENT_K2_DECL = '''
 extern "C" int sail_render_grad_block(const float* params, const int* table, int n_obj,
                                       int n_plain, int n_groups, int n_mat, int n_tex,
@@ -218,15 +280,16 @@ extern "C" int sail_render_grad_block(const float* params, const int* table, int
 
 def test_k2_compare_binds_a_parent_by_its_signature():
     """tools/k2_compare.py binds a parent's K2 from the parameters its
-    source declares, by name: this tree's entry and the entry without
-    `all_shapes` (nor `lights`) each get their own argument list; a
-    parameter the tool does not know stops it; the parent's build comes
-    from its limits."""
-    import ctypes
+    source declares, by name: this tree's entry gets its argument list; an
+    entry of the layout before one library per build takes a `cap` the
+    tool no longer has, which stops it, as does any parameter the tool
+    does not know; the parent's library for a scene is its build's, as
+    this tree's `grad_build` picks it."""
+    from sail_tpu_torch import scenes
     from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.tools import k2_compare as kc
     names = ("params", "table", "n_obj", "n_plain", "n_groups", "n_mat",
-             "n_tex", "n_light", "cam", "n_params", "cap", "all_shapes",
+             "n_tex", "n_light", "cam", "n_params", "all_shapes",
              "materials", "lights", "gx", "gy", "gz", "rows", "height",
              "width", "spp", "seed", "sample0", "max_bounces", "row0",
              "image_height", "stream")
@@ -237,25 +300,28 @@ def test_k2_compare_binds_a_parent_by_its_signature():
     assert argtypes == mk.K2_ARGTYPES
     assert args == [values[n] for n in names]
     old = kc.entry_params(_PARENT_K2_DECL)
-    argtypes, args = kc.parent_args(old, values)
-    assert [n for _, n in old] == [n for n in names
-                                   if n not in ("all_shapes", "lights")]
-    assert argtypes == [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 \
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    assert args[11] == values["materials"]
-    with pytest.raises(ValueError, match="min_blocks"):
-        kc.parent_args(old[:11] + [(False, "min_blocks")] + old[11:], values)
+    assert [n for _, n in old] == [
+        n for n in names[:10] + ("cap",) + names[10:]
+        if n not in ("all_shapes", "lights")]
     with pytest.raises(ValueError, match="cap"):
-        kc.parent_args([(True, n) if n == "cap" else (p, n)
-                        for p, n in old], values)
-    # limits: block, bounces, number of local sizes, the sizes, and the
-    # shared build's most parameters where the parent has it (else -1)
-    old_limits = [16, 16, 8, 3, 352, 1024, 4096] + [-1] * 25
-    new_limits = [16, 16, 8, 3, 352, 1024, 4096, 220] + [-1] * 24
-    assert [kc.parent_cap(old_limits, n) for n in (72, 879, 3375)] == \
-        [352, 1024, 4096]
-    assert [kc.parent_cap(new_limits, n) for n in (72, 220, 221, 879)] == \
-        [0, 0, 352, 1024]
+        kc.parent_args(old, values)
+    with pytest.raises(ValueError, match="min_blocks"):
+        kc.parent_args(here[:11] + [(False, "min_blocks")] + here[11:],
+                       values)
+    with pytest.raises(ValueError, match="materials"):
+        kc.parent_args([(True, n) if n == "materials" else (p, n)
+                        for p, n in here], values)
+    # the library a scene runs: megakernel_grad.cu with its build's
+    # defines, by parameter count and kind
+    mirror = scenes.cornell_mirror().pack()[1]
+    demo = scenes.material_demo().pack()[1]
+    assert [kc.k2_library(n, demo)[1][:3] for n in (72, 879, 3375)] == [
+        (f"GRAD_CAP={c}", "GRAD_ALL=true", "GRAD_MATS=true")
+        for c in (0, 1024, 4096)]
+    assert [kc.k2_library(n, mirror)[1][0] for n in (72, 220, 221, 879)] \
+        == ["GRAD_CAP=0", "GRAD_CAP=0", "GRAD_CAP=352", "GRAD_CAP=1024"]
+    assert {kc.k2_library(n, mirror)[0] for n in (72, 879)} == \
+        {"megakernel_grad"}
 
 
 # K1's entry before the staged rectangle frames (no n_frames), as the
@@ -310,20 +376,29 @@ def test_k1_compare_binds_a_parent_by_its_signature():
 
 
 def test_k2_compare_names_a_kernel_as_its_parent_did():
-    """K2's kernels gained a last template argument, LIGHTS, false in every
-    build a parent had: tools/k2_compare.py compares `<..., false>` with
-    the parent's name one argument shorter, and leaves every other name
-    (a LIGHTS build, K1's, a parent that has the argument) as it is."""
+    """tools/k2_compare.py compares a library's kernels with the parent's
+    library of the same defines, kernel by kernel under the same name: a
+    K2 build with the same SASS and resources is `same`, one whose SASS or
+    resources changed `differ`, one only one tree builds neither; K1's and
+    the reduce's are listed with both trees' resources."""
+    from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.tools import k2_compare as kc
-    old = {"render_grad_kernel<0, true, true, 0, 1>",
-           "render_grad_kernel<352, true, false, 0, 1>",
-           "render_block_kernel<true, false, true, 0>"}
-    assert kc.parent_name("render_grad_kernel<0, true, true, 0, 1, false>",
-                          old) == "render_grad_kernel<0, true, true, 0, 1>"
-    assert kc.parent_name("render_grad_kernel<352, true, false, 0, 1, "
-                          "false>", old) == \
-        "render_grad_kernel<352, true, false, 0, 1>"
-    for same in ("render_grad_kernel<0, true, true, 0, 1, true>",
-                 "render_grad_kernel<1024, true, true, 0, 1, false>",
-                 "render_block_kernel<true, false, true, 0>"):
-        assert kc.parent_name(same, old) == same
+    two, shared = mk.GRAD_BUILDS[0].kernel, mk.GRAD_BUILDS[1].kernel
+    assert two == "render_grad_kernel<0, false, false, 0, 2, false>"
+    res = {"registers": 128, "stack": 0}
+    old = {two: ["FADD R1, R2, R3"], shared: ["FMUL R1, R2, R3"],
+           "render_grad_kernel<352, true, false, 0, 1, false>": ["EXIT"],
+           "reduce_grad_rows_kernel<1>": ["EXIT"]}
+    new = {two: ["FADD R1, R2, R3"], shared: ["FMUL R1, R2, R4"],
+           "reduce_grad_rows_kernel<1>": ["NOP"]}
+    out = {"same": [], "differ": [], "k1": {}}
+    kc.compare_kernels("megakernel_grad", old, new, {k: res for k in old},
+                       {k: res for k in new}, out)
+    assert out["same"] == [f"{two} (megakernel_grad)"]
+    assert out["differ"] == [f"{shared} (megakernel_grad)"]
+    assert out["k1"] == {"reduce_grad_rows_kernel<1> (megakernel_grad)": {
+        "parent": res, "new": res, "sass_changed": True}}
+    out = {"same": [], "differ": [], "k1": {}}
+    kc.compare_kernels("megakernel_grad", {two: old[two]}, {two: old[two]},
+                       {two: res}, {two: dict(res, registers=127)}, out)
+    assert out["differ"] == [f"{two} (megakernel_grad)"] and not out["same"]

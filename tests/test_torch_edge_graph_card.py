@@ -39,6 +39,7 @@ from sail_tpu_torch.ops.cuda import penumbra as kp
 from sail_tpu_torch.parallel import render_sharded as rs
 from sail_tpu_torch.parallel.mesh import make_mesh
 from sail_tpu_torch.scene.scene import leaf_paths
+from sail_tpu_torch.utils import metrics
 
 SIZE = 256
 SPP = 4
@@ -138,9 +139,7 @@ def _kernels_by_name(fn, *args, **kw):
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn(*args, **kw)
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    names = [e.name for e in prof.events() if e.device_type == cuda]
-    return tuple(sum(k in n for n in names) for k in KERNEL_NAMES)
+    return metrics.kernels_named(prof, KERNEL_NAMES)
 
 
 @pytest.mark.card
@@ -171,7 +170,6 @@ def test_config5_train_steps_replay_the_eager_term(card, fresh_graphs,
     assert calls.rows[0][2][1][3] == 1, "one KA launch: one mirror pair"
     # a replayed train step, with the term itself (no eager runs beside
     # it), runs one KA kernel, inside the term's graph
-    import chip_smoke
     monkeypatch.setattr(rs, "full_boundary_term", tb.full_boundary_term)
     replays = tb.full_boundary_term.replays
     with torch.profiler.profile(
@@ -179,7 +177,7 @@ def test_config5_train_steps_replay_the_eager_term(card, fresh_graphs,
         step(target)
         torch.cuda.synchronize()
     assert tb.full_boundary_term.replays == replays + 1
-    assert chip_smoke.kernels_named(prof, ("alhazen_kernel",)) == (1,)
+    assert metrics.kernels_named(prof, ("alhazen_kernel",)) == (1,)
     # a replay runs KR, KP and its reduce as often as the eager call
     # launched them: counted on the device, by name
     gen = torch.Generator().manual_seed(11)

@@ -78,16 +78,21 @@ def test_grad_block_matches_pallas_interpret():
 
 
 def test_grad_cap_choice():
-    """The smallest K2 build that holds the parameters; a raise above the
-    largest.  The many-sphere scene packs 13 N + 47 parameters."""
-    assert mk.grad_cap(1) == mk.grad_cap(352) == 352
-    assert mk.grad_cap(353) == mk.grad_cap(1024) == 1024
+    """Above the shared build, the smallest local K2 build that holds the
+    parameters; a raise above the largest.  The many-sphere scene packs
+    13 N + 47 parameters."""
+    def cap(n):
+        return mk.grad_build(n, True, False, False).cap
+
+    assert cap(1) == cap(mk.SHARED_GRAD_MAX_PARAMS) == mk.SHARED_GRAD
+    assert cap(mk.SHARED_GRAD_MAX_PARAMS + 1) == cap(352) == 352
+    assert cap(353) == cap(1024) == 1024
     sizes = {n: tscenes.many_spheres(n).pack()[0].numel()
              for n in (12, 64, 256)}
     assert sizes == {12: 203, 64: 879, 256: 3375}
-    assert [mk.grad_cap(s) for s in sizes.values()] == [352, 1024, 4096]
+    assert [cap(s) for s in sizes.values()] == [mk.SHARED_GRAD, 1024, 4096]
     with pytest.raises(ValueError, match="at most 4096"):
-        mk.grad_cap(4097)
+        cap(4097)
     with pytest.raises(ValueError, match="at most 4096"):
         params, static = tscenes.many_spheres(320).pack()
-        mk.grad_cap(params.numel())
+        cap(params.numel())

@@ -51,7 +51,8 @@ def host_lib(tmp_path_factory):
                     "per-sample code needs a C++17 compiler")
     lib = str(tmp_path_factory.mktemp("k2_host") / "k2_host.so")
     subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-I", HOST_DIR, "-o", lib,
+                    "-shared", "-I", HOST_DIR,
+                    f"-DMAX_GRAD_BOUNCES={mk.MAX_GRAD_BOUNCES}", "-o", lib,
                     os.path.join(HOST_DIR, "k2_host.cpp")], check=True,
                    capture_output=True)
     return ctypes.CDLL(lib)
@@ -116,16 +117,26 @@ def test_host_k2_matches_plain(host_k2, name, monkeypatch):
     assert err < PLAIN_RTOL, err
 
 
-def test_host_entry_matches_its_bindings():
+def test_host_entry_matches_its_bindings(host_k2):
+    """The host entry's parameters against its bindings, and the bounce
+    limit the build was given (MAX_GRAD_BOUNCES, as the kernels take it):
+    one bounce more is refused."""
     with open(os.path.join(HOST_DIR, "k2_host.cpp")) as f:
         text = f.read()
-    for name, argtypes in (("sail_host_pixel_grads", HOST_ARGTYPES),
-                           ("sail_host_grad_min_blocks",
-                            mk.MIN_BLOCKS_ARGTYPES)):
-        params = re.search(rf'extern "C" int {name}\(([^)]*)\)',
-                           text).group(1)
-        assert [_P if "*" in p else _I for p in params.split(",")] == \
-            argtypes
+    params = re.search(r'extern "C" int sail_host_pixel_grads\(([^)]*)\)',
+                       text).group(1)
+    assert [_P if "*" in p else _I for p in params.split(",")] == \
+        HOST_ARGTYPES
+    params, static, g = _inputs("cornell_mirror")
+    t = mk.scene_table(static)
+    p = params.numpy()
+    table = np.array(t.ints, dtype=np.int32)
+    gs = [np.ascontiguousarray(c.numpy()) for c in g]
+    out = np.zeros((SIZE * SIZE, p.size), np.float32)
+    assert host_k2(p.ctypes.data, table.ctypes.data, *mk._counts(static),
+                   t.offsets.camera, p.size, 0, 1,
+                   *(c.ctypes.data for c in gs), out.ctypes.data, SIZE,
+                   SIZE, 1, 0, 0, mk.MAX_GRAD_BOUNCES + 1, 0, SIZE) == 1
 
 
 def _pack(name):
@@ -138,14 +149,16 @@ def _pack(name):
     return getattr(scenes, name)().pack()
 
 
-def _grad_build_constants():
-    with open(os.path.join(build.CSRC_DIR, "grad_build.h")) as f:
-        text = f.read()
-    const = {k: int(v) for k, v in re.findall(
-        r"(BLOCK_[XY]|MAX_BLOCK_SMEM|SM_SMEM|BLOCK_RESERVED_SMEM) = (\d+)",
-        text)}
-    threads = const["BLOCK_X"] * const["BLOCK_Y"]
-    return const, threads, (threads + threads // 32) * 4
+def _grad_build(n, static):
+    t = mk.scene_table(static)
+    return mk.grad_build(n, t.all_shapes, t.materials, t.lights)
+
+
+def _bytes_per_param():
+    """Shared memory a parameter of the shared build takes: a float in each
+    thread's column and in each warp's partial sum."""
+    threads = mk.GRAD_BLOCK[0] * mk.GRAD_BLOCK[1]
+    return (threads + threads // 32) * 4
 
 
 SIZES = {"cornell_mirror": 72, "material_demo": 126, "quadrics": 138,
@@ -157,42 +170,39 @@ SIZES = {"cornell_mirror": 72, "material_demo": 126, "quadrics": 138,
 def test_k2_build_choice_fits_shared_memory():
     """K2 keeps a thread's gradient in shared memory where the block's
     columns and the warps' partial sums, (THREADS + WARPS) x n_params
-    floats, fit the shared memory a block may have (`grad_build.h`):
-    220 parameters, which the wrapper's SHARED_GRAD_MAX_PARAMS repeats.
-    Configs 2 and 3, the quadrics, the open twin and 12 spheres take it;
-    the check scene and 16 spheres or more the smallest local array of
-    `grad_cap`."""
-    const, _, per_param = _grad_build_constants()
-    limit = const["MAX_BLOCK_SMEM"] // per_param
+    floats, fit the shared memory a block may have (MAX_BLOCK_SMEM): 220
+    parameters, SHARED_GRAD_MAX_PARAMS, which the builds take as
+    GRAD_MAX_PARAMS.  Configs 2 and 3, the quadrics, the open twin and 12
+    spheres take it; the check scene and 16 spheres or more the smallest
+    local array that holds them."""
+    limit = mk.MAX_BLOCK_SMEM // _bytes_per_param()
     assert limit == mk.SHARED_GRAD_MAX_PARAMS == 220
-    assert (const["BLOCK_X"], const["BLOCK_Y"]) == mk.GRAD_BLOCK
-    assert mk.grad_build(limit) == mk.SHARED_GRAD
-    assert mk.grad_build(limit + 1) == mk.grad_cap(limit + 1) == 352
+    assert mk.GRAD_BLOCK == (16, 16)
+    demo = _pack("material_demo")[1]
+    assert _grad_build(limit, demo).cap == mk.SHARED_GRAD
+    assert f"GRAD_MAX_PARAMS={limit}" in _grad_build(limit, demo).defines
+    assert _grad_build(limit + 1, demo).cap == 352
     sizes = {name: _pack(name)[0].numel() for name in SIZES}
     assert sizes == SIZES
-    assert {k: mk.grad_build(v) for k, v in sizes.items()} == {
+    assert {k: _grad_build(v, _pack(k)[1]).cap
+            for k, v in sizes.items()} == {
         "cornell_mirror": 0, "material_demo": 0, "quadrics": 0,
         "lights_and_quadrics": 0, "area_lights": 0,
         "material_demo_open": 0, "spheres12": 0, "material_check": 352,
         "spheres16": 352, "spheres64": 1024, "spheres256": 4096}
 
 
-def test_k2_launch_bound_choice(host_lib):
-    """The C entries choose K2's launch bound from the build the wrapper
-    picks and the scene (`grad_build.h`, here through the host build): two
-    blocks per SM for configs 1-2's kind (the benchmark scenes' shapes,
+def test_k2_launch_bound_choice():
+    """The chooser gives K2's launch bound with its build (`grad_build`):
+    two blocks per SM for configs 1-2's kind (the benchmark scenes' shapes,
     matte and mirror) where two blocks' columns fit an SM's 228 KB (109
-    parameters), one for every other scene."""
-    fn = host_lib.sail_host_grad_min_blocks
-    fn.argtypes, fn.restype = mk.MIN_BLOCKS_ARGTYPES, ctypes.c_int
-    const, _, per_param = _grad_build_constants()
-    two_max = (const["SM_SMEM"] // 2 - const["BLOCK_RESERVED_SMEM"]) \
-        // per_param
-    assert two_max == 109
+    parameters, TWO_BLOCK_MAX_PARAMS), one for every other scene."""
+    two_max = (mk.SM_SMEM // 2 - mk.BLOCK_RESERVED_SMEM) \
+        // _bytes_per_param()
+    assert two_max == mk.TWO_BLOCK_MAX_PARAMS == 109
 
     def blocks(n, static):
-        t = mk.scene_table(static)
-        return fn(n, mk.grad_build(n), int(t.all_shapes), int(t.materials))
+        return _grad_build(n, static).min_blocks
 
     got = {name: blocks(n, _pack(name)[1]) for name, n in SIZES.items()}
     assert {name for name, b in got.items() if b == 2} == {"cornell_mirror"}
@@ -200,7 +210,8 @@ def test_k2_launch_bound_choice(host_lib):
     mirror = _pack("cornell_mirror")[1]
     assert blocks(two_max, mirror) == 2 and blocks(two_max + 1, mirror) == 1
     # a local build never takes two blocks, whatever the scene
-    assert fn(72, 352, 0, 0) == 1
+    assert mk.grad_build(353, False, False, False).min_blocks == 1
+    assert "GRAD_MIN_BLOCKS=2" in _grad_build(72, mirror).defines
 
 
 @pytest.mark.parametrize("strip", ["forward_only", "no_adjoint"])

@@ -178,21 +178,26 @@ def test_paraboloid_tie_gives_jax_gradient(jax_rsqrt_as_port):
 def test_k2_takes_lit_scenes_up_to_its_largest_build(jax_rsqrt_as_port):
     """K2 has LIGHTS builds (a light beyond a rectangle area light) at every
     gradient array: 24 spheres and a point light (366 parameters) take the
-    1,024-float one and 80 (1,094) the 4,096-float one, both in
-    `megakernel_grad_lights.cu`.  `render_grad_rows` runs K2 alone, so a
+    1,024-float one and 80 (1,094) the 4,096-float one, each a library of
+    its own.  `render_grad_rows` runs K2 alone, so a
     CPU tensor is refused for want of a card, not for its size; the plain
     gradient of the 24-sphere scene (the version the chip holds those
     builds against) matches JAX's at 4², 1 spp, 2 bounces, at TOL."""
     import sail_tpu
     from sail_tpu_torch import scenes as tscenes
     from sail_tpu_torch.ops.cuda import megakernel as mk
-    assert mk.LIGHTS_MAX_CAP == mk.GRAD_CAPS[-1] == 4096
-    assert mk.LIGHTS_CAPS == (1024, 4096)
+    assert max(b.cap for b in mk.GRAD_BUILDS if b.lights) \
+        == mk.GRAD_CAPS[-1] == 4096
+    assert {b.cap for b in mk.GRAD_BUILDS if b.lights} \
+        == {mk.SHARED_GRAD, *mk.GRAD_CAPS}
     for n, cap in ((24, 1024), (80, 4096)):
         params, static = tscenes.lit_spheres(n).pack()
-        assert mk.scene_table(static).lights
+        t = mk.scene_table(static)
+        assert t.lights
         assert params.numel() > mk.GRAD_CAPS[mk.GRAD_CAPS.index(cap) - 1]
-        assert mk.grad_build(params.numel()) == cap
+        assert mk.grad_build(params.numel(), t.all_shapes, t.materials,
+                             t.lights) == mk.GradBuild(cap, True, False, 1,
+                                                       True)
         g = Vec3(*(torch.ones(4, 4) for _ in range(3)))
         with pytest.raises(TypeError, match="CUDA tensor"):
             mk.render_grad_rows(params, static, g, 4, 4, 1, 0, 0, 2)
@@ -213,27 +218,32 @@ def test_k2_takes_lit_scenes_up_to_its_largest_build(jax_rsqrt_as_port):
 
 
 def test_k2_lights_library_matches_the_wrapper():
-    """`megakernel_grad_lights.cu` builds the LIGHTS kernel of
-    `render_grad.cuh` at LIGHTS_CAPS, which its entry reports; the entry
-    takes K2's arguments; `megakernel_grad.cu` reports the largest cap as
-    LIGHTS_MAX_CAP."""
-    import ctypes
-    import os
+    """K2's one source makes every LIGHTS build: the chooser's build list
+    holds the LIGHTS kernel of `render_grad.cuh` at every gradient array,
+    with and without MATS, each with ALL, at one block per SM, and each a
+    library of its own (its defines in the file name); every define a build
+    passes is one the source and its headers read, and the entry launches
+    the build its defines name."""
     import re
     from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.utils import build
-    with open(os.path.join(build.CSRC_DIR, "megakernel_grad_lights.cu")) as f:
-        text = f.read()
-    caps = re.search(r"constexpr int LIGHTS_CAPS\[\] = \{([\d, ]+)\};",
-                     text).group(1)
-    assert tuple(int(c) for c in caps.split(",")) == mk.LIGHTS_CAPS
-    params = re.search(r'extern "C" int sail_render_grad_lights\(([^)]*)\)',
-                       text).group(1)
-    assert [ctypes.c_void_p if "*" in p else ctypes.c_int
-            for p in params.split(",")] == mk.K2_ARGTYPES
-    assert "launch_grad<C, true, M, 0, 1, true>" in text
-    assert "render_grad.cuh" in {os.path.basename(p) for p in
-                                 build.sources("megakernel_grad_lights")}
-    with open(os.path.join(build.CSRC_DIR, "megakernel_grad.cu")) as f:
-        grad = f.read()
-    assert "constexpr int LIGHTS_MAX_CAP = CAPS[N_CAPS - 1];" in grad
+    lit = [b for b in mk.GRAD_BUILDS if b.lights]
+    assert sorted((b.cap, b.materials) for b in lit) == sorted(
+        (c, m) for c in (mk.SHARED_GRAD, *mk.GRAD_CAPS) for m in (False, True))
+    assert all(b.all_shapes and b.min_blocks == 1 for b in lit)
+    assert [b.kernel for b in lit[:1]] == [
+        "render_grad_kernel<0, true, false, 0, 1, true>"]
+    paths = {build._library_path(("megakernel_grad", b.defines))
+             for b in mk.GRAD_BUILDS}
+    assert len(paths) == len(mk.GRAD_BUILDS) == 17
+    assert "-true-" in build._library_path(("megakernel_grad",
+                                            lit[0].defines))
+    text = ""
+    for path in build.sources("megakernel_grad"):
+        with open(path) as f:
+            text += f.read()
+    for b in mk.GRAD_BUILDS:
+        for d in b.defines:
+            assert re.search(rf"\b{d.split('=')[0]}\b", text), d
+    assert "launch_grad<GRAD_CAP, GRAD_ALL, GRAD_MATS, 0, GRAD_MIN_BLOCKS, " \
+        "GRAD_LIGHTS>" in text

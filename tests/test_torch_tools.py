@@ -66,7 +66,7 @@ def test_localise_splits_a_leaf_into_its_pixels(monkeypatch):
     """grad_localise's pixel maps, with K2's block partials stood in for by
     the plain version's: both sides' maps sum to the leaf's gradient and
     agree pixel by pixel, and the check names a leaf within its bound."""
-    monkeypatch.setattr(mk, "grad_limits", lambda: {"block": (3, 2)})
+    monkeypatch.setattr(mk, "GRAD_BLOCK", (3, 2))
     monkeypatch.setattr(mk, "render_grad_rows", _rows_on_the_cpu((3, 2)))
     params, static = scenes.many_spheres(12).pack()
     gen = torch.Generator().manual_seed(0)
