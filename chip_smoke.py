@@ -278,6 +278,12 @@ KP_TOL = 1e-4
 # KA's roots and slopes against the plain solve's on the card, elementwise
 # relative (the same float32 operations; tests/test_torch_alhazen.py)
 KA_RTOL = 1e-5
+# KH's planes and points against the plain receivers' on the card,
+# elementwise absolute (the same float32 operations: bit for bit expected;
+# tests/test_torch_receivers.py holds the host build to it), and its camera
+# partials against autograd's: |diff| <= KH_TOL·max|autograd|
+KH_PLANE_TOL = 1e-5
+KH_TOL = 2.7e-5
 FD_EPS = 1e-2
 # the batched silhouette term against the same sites traced one by one:
 # |diff| <= BATCH_TOL·max|per-site| (the same float32 operations on the same
@@ -1787,9 +1793,11 @@ def host_ms(fn, *args, runs: int = 1, **kw):
     return res, statistics.median(times)
 
 
-# KR, KP, the K2 reduce and KA as the profiler names their kernels
+# KR, KP, the K2 reduce, KA and KH's forward and adjoint as the profiler
+# names their kernels
 EDGE_KERNEL_NAMES = ("trace_rays_kernel", "penumbra_kernel",
-                     "reduce_grad_rows_kernel", "alhazen_kernel")
+                     "reduce_grad_rows_kernel", "alhazen_kernel",
+                     "receivers_kernel", "receivers_grad_kernel")
 
 
 class CallPatch:
@@ -2040,25 +2048,32 @@ def display_path(dev, card: str) -> list:
     return []
 
 
-def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0, 0),
-                 on: str = None) -> tuple:
-    """KR, KP and KA at config 5's step inputs (`q`, the loss adjoint `dL`,
-    the step's edge settings): KR against the plain integrator's
-    trace_rays on the silhouette term's straddle rays bit for bit; KP's
-    penumbra term (shadow_boundary_term) against the plain version's on the
-    card per leaf within KP_TOL of the largest leaf, and its partials in
-    the receiver points too; KA against the plain Alhazen solve on the
-    silhouette term's mirror pair (the masks equal, the roots and slopes
-    within KA_RTOL); each timed beside its plain version, its bound from
-    these inputs.  `launches`: each kernel's launches in the main path's
-    run.  Returns (summary, the three kernels' entries).  Raises."""
+def edge_kernels(q, static, dL, n: int, edge_kw: dict,
+                 launches=(0, 0, 0, 0, 0), on: str = None) -> tuple:
+    """KR, KP, KA and KH at config 5's step inputs (`q`, the loss adjoint
+    `dL`, the step's edge settings): KR against the plain integrator's
+    trace_rays on the silhouette term's straddle rays bit for bit; the
+    penumbra term (shadow_boundary_term: KH's receivers and KP) against
+    the plain version's on the card per leaf within KP_TOL of the largest
+    leaf, and KP's partials in the receiver points too; KH's planes, ints
+    and points against the plain receivers' bit for bit, its camera
+    partials against autograd's through the plain live points within
+    KH_TOL; KA against the plain Alhazen solve on the silhouette term's
+    mirror pair (the masks equal, the roots and slopes within KA_RTOL);
+    each timed beside its plain version, its bound from these inputs.
+    `launches`: each kernel's launches in the main path's run (KR, KP, KA,
+    KH's forward, its adjoint).  Returns (summary, the four kernels'
+    entries).  Raises."""
     from sail_tpu_torch.core.vecmath import Vec3
     from sail_tpu_torch.diff import boundary
     from sail_tpu_torch.ops.cuda import alhazen as ka
     from sail_tpu_torch.ops.cuda import megakernel as mk
+    from sail_tpu_torch.core.camera import CameraParams
+    from sail_tpu_torch.ops import intersect as isect
     from sail_tpu_torch.ops.cuda import penumbra as kp
+    from sail_tpu_torch.ops.cuda import receivers as kh
     from sail_tpu_torch.render import integrator
-    from sail_tpu_torch.scene.scene import leaf_paths, unflatten
+    from sail_tpu_torch.scene.scene import leaf_paths, param_offsets, unflatten
     from sail_tpu_torch.tools.k2_compare import queued_ms
     from sail_tpu_torch.utils import opcount
 
@@ -2094,21 +2109,27 @@ def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0, 0),
                     opcount.bound_ms(kr_ops, 44 * n_rays)))
 
     # -- KP: the penumbra term ------------------------------------------------
+    # with the plain receivers on the card (their KP call captured), then
+    # with the plain receivers and the plain KP, then as the step runs it
+    # (KH's receivers and KP)
     pen_kw = dict(n_curve_samples=edge_kw["n_curve_samples"],
                   seed=edge_kw["seed"])
+    kernel_term = boundary._shadow_term_kernel
+    kernel_scalar = kp.penumbra_scalar
+    boundary._shadow_term_kernel = boundary._shadow_term_plain
     tap = CallPatch(kp, "penumbra_scalar")
     try:
-        boundary.shadow_boundary_term(q, static, dL, n, n, **pen_kw)
-    finally:
+        g_recv, recv_term_ms = host_ms(boundary.shadow_boundary_term, q,
+                                       static, dL, n, n, **pen_kw)
         tap.restore()
-    (kp_args,) = tap.args
-    kernel_scalar = kp.penumbra_scalar
-    kp.penumbra_scalar = kp.penumbra_scalar_plain
-    try:
+        kp.penumbra_scalar = kp.penumbra_scalar_plain
         g_plain, term_plain_ms = host_ms(boundary.shadow_boundary_term, q,
                                          static, dL, n, n, **pen_kw)
     finally:
+        tap.restore()
         kp.penumbra_scalar = kernel_scalar
+        boundary._shadow_term_kernel = kernel_term
+    (kp_args,) = tap.args
     g_kp, term_ms = host_ms(boundary.shadow_boundary_term, q, static, dL, n,
                             n, runs=3, **pen_kw)
     d = (g_kp - g_plain).abs()
@@ -2116,7 +2137,7 @@ def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0, 0),
     worst = int(d.argmax())
     paths = leaf_paths(static)
     kp_text = (f"penumbra term at {n}x{n} (K {pen_kw['n_curve_samples']}), "
-               f"KP vs plain: max |diff| {float(d.max()):.3g} = "
+               f"KH and KP vs plain: max |diff| {float(d.max()):.3g} = "
                f"{float(d.max()) / top:.3g} of the largest leaf "
                f"({top:.4g}), worst leaf {paths[worst]} plain "
                f"{float(g_plain[worst]):.6g} KP {float(g_kp[worst]):.6g}")
@@ -2127,7 +2148,8 @@ def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0, 0),
     # the kernel alone on the inputs the step gave it, and the plain
     # version of the same function: the scalar and autograd's partials
     pk, pk_d, st, dl_, recv, x_live, pairs, K = kp_args
-    ids, inputs = kp.pack_inputs(pk_d, st, dl_, recv, pairs, K)
+    ids, inputs = kp.pack_inputs(pk_d, st, dl_, *kp.receiver_planes(recv),
+                                 pairs, K)
     spheres = torch.stack([torch.stack((*pk_d.objects[i].center,
                                         pk_d.objects[i].radius))
                            for i in ids]).contiguous()
@@ -2159,6 +2181,89 @@ def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0, 0),
                     + inputs.ints.numel() + inputs.dl.numel())
     kp_b = dict(zip(("bound_ms", "bound_by"), opcount.bound_ms(
         opcount.penumbra_ops(tally, K), kp_bytes)))
+
+    # -- KH: the primary and mirror receivers --------------------------------
+    R = len(recv)
+    planes_p, ints_p = kp.receiver_planes(recv)
+    planes_p = planes_p.contiguous()
+    (xs_h, planes_h, ints_h), kh_call_ms = cuda_ms(kh.trace_receivers, q,
+                                                   static, n, n, R)
+    kh_bits = all(torch.equal(a.contiguous().view(torch.int32),
+                              b.contiguous().view(torch.int32))
+                  for a, b in ((planes_h, planes_p), (xs_h, xs)))
+    kh_err = max(float((planes_h - planes_p).abs().max()),
+                 float((xs_h - xs).abs().max()))
+    per_plane = (planes_h - planes_p).abs().amax(dim=(0, 2, 3))
+    kh_text = (f"KH vs the plain receivers ({R} receivers at {n}x{n}): ints "
+               f"{'equal' if torch.equal(ints_h, ints_p) else 'DIFFER'}, "
+               f"planes and points max |diff| {kh_err:.3g}, "
+               f"{'bit-identical' if kh_bits else 'not bit-identical'}")
+    if not kh_bits:
+        kh_text += (f" (each plane's largest difference, n ss ts wo sc tint "
+                    f"each x y z: "
+                    f"{[f'{float(v):.3g}' for v in per_plane]})")
+    if not (torch.equal(ints_h, ints_p) and kh_err <= KH_PLANE_TOL
+            and bool(torch.isfinite(planes_h).all())):
+        raise AssertionError(f"KH disagrees with the plain receivers: "
+                             f"{kh_text}")
+    # the adjoint at KP's cotangent, against autograd through the plain
+    # live points
+    off = param_offsets(st)
+    g_x = gx_kp.contiguous()
+    cam_kh, kh_adj_call_ms = cuda_ms(kh.receivers_adjoint, q, st, g_x)
+
+    def plain_camera():
+        c = q[off.camera:off.size].clone().requires_grad_()
+        cam = CameraParams(Vec3(*c[0:3]), Vec3(*c[3:6]), Vec3(*c[6:9]),
+                           Vec3(*c[9:12]), c[12], c[13])
+        x = boundary._live_points(cam, pk_d, st, n, n, q, R > 1)
+        xl = torch.stack([x[rc.tag].stack(0) for rc in recv])
+        return torch.autograd.grad((xl * g_x).sum(), c)[0]
+
+    cam_plain = plain_camera()
+    cam_top = float(cam_plain.abs().max())
+    cam_err = float((cam_kh - cam_plain).abs().max())
+    if not (cam_err <= KH_TOL * cam_top and bool(torch.isfinite(cam_kh).all())):
+        raise AssertionError(f"KH's camera partials are {cam_err:.3g} off "
+                             f"autograd's (max {cam_top:.3g})")
+    sphere_leaves = [k for k in range(len(paths))
+                     if not paths[k].startswith(".camera")]
+    recv_bits = torch.equal(g_kp[sphere_leaves], g_recv[sphere_leaves])
+    recv_err = float((g_kp - g_recv).abs().max())
+    kh_text += (f"; camera partials at KP's cotangent {cam_err:.3g} of "
+                f"{cam_top:.3g} off autograd's; the term with KH vs with the "
+                f"plain receivers: max |diff| {recv_err:.3g}, the leaves "
+                f"but the camera's "
+                f"{'bit-identical' if recv_bits else 'not bit-identical'}")
+    kh_fwd_ms = median_ms(kh.trace_receivers, q, static, n, n, R)
+    kh_adj_ms = median_ms(kh.receivers_adjoint, q, st, g_x)
+
+    def eager_receivers():
+        """The plain receivers on the card, their planes and their
+        backward at KP's cotangent: the work KH does (KP stood in)."""
+        def stand_in(pk_, pk_d_, st_, dl__, recv_, x_live_, pairs_, k_):
+            kp.receiver_planes(recv_)
+            xl = torch.stack([x_live_[rc.tag].stack(0) for rc in recv_])
+            return (xl * g_x).sum()
+        kp.penumbra_scalar = stand_in
+        try:
+            return boundary._shadow_term_plain(q, st, dl_, n, n, K,
+                                               edge_kw["seed"], 0, pairs)
+        finally:
+            kp.penumbra_scalar = kernel_scalar
+
+    kh_plain_ms = min(cuda_ms(eager_receivers)[1] for _ in range(3))
+    # the bound: the bytes KH writes and reads, and the closest-hit tests of
+    # its two folds (forward and adjoint) over both bounces
+    kh_bytes = 4 * (xs_h.numel() + planes_h.numel() + ints_h.numel()
+                    + g_x.numel())
+    fold = {}
+    with torch.no_grad():
+        _, (ro_p, rd_p) = boundary._pixel_rays(pk_d.camera, n, n, q)
+        isect.intersect_scene(pk_d.objects, st, ro_p, rd_p, tally=fold)
+    kh_ops = 2 * R * n * n * float(opcount._test_ops(fold["scan"]))
+    kh_b = dict(zip(("bound_ms", "bound_by"),
+                    opcount.bound_ms(kh_ops, kh_bytes)))
 
     # -- KA: the sphere mirror's Alhazen solve ------------------------------
     (ka_args,) = ka_tap.args
@@ -2200,7 +2305,14 @@ def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0, 0),
                f"{kp_b['bound_ms']:.4f} ms ({tally['units']} receiver pixel-"
                f"spheres, {tally['valid']} samples lighting their "
                f"receiver); the whole penumbra term {term_ms:.1f} ms, "
-               f"{term_plain_ms:.1f} ms with the plain version | {ka_text}; "
+               f"{recv_term_ms:.1f} ms with the plain receivers, "
+               f"{term_plain_ms:.1f} ms with the plain version | {kh_text}; "
+               f"KH {kh_fwd_ms:.4f} ms and its adjoint (with its reduce) "
+               f"{kh_adj_ms:.4f} ms between events (median of {TIMED_RUNS}; "
+               f"a call {kh_call_ms:.3f} / {kh_adj_call_ms:.3f} ms), the "
+               f"plain receivers with their backward {kh_plain_ms:.1f} ms, "
+               f"bound {kh_b['bound_ms']:.4f} ms by {kh_b['bound_by']} | "
+               f"{ka_text}; "
                f"KA {ka_ms:.4f} ms a call between events (median of "
                f"{TIMED_RUNS}), {ka_queued_ms:.4f} ms a launch queued, the "
                f"plain solve {ka_plain_ms:.1f} ms, bound "
@@ -2229,6 +2341,22 @@ def edge_kernels(q, static, dL, n: int, edge_kw: dict, launches=(0, 0, 0),
                    "block rows) between events, median; plain_ms: the plain "
                    "version's scalar and autograd's partials, one call; "
                    "max_abs_err: the penumbra term per leaf"),
+        kernel_row("KH trace_receivers + receivers_adjoint (config 5's "
+                   "penumbra receivers)",
+                   "sail_tpu_torch/csrc/receivers.cu + receivers.cuh",
+                   no_tpu, launches[3] + launches[4], kh_err,
+                   kh_fwd_ms + kh_adj_ms, kh_plain_ms, kh_b,
+                   f"{R} receivers, " + shape, launches_counted_on=on,
+                   forward_ms=kh_fwd_ms, adjoint_ms=kh_adj_ms,
+                   call_ms=kh_call_ms, adjoint_call_ms=kh_adj_call_ms,
+                   camera_err=cam_err, camera_max=cam_top,
+                   bit_identical=kh_bits,
+                   timing="ms: trace_receivers (KH) plus receivers_adjoint "
+                   "(its adjoint and the reduce of its rows), each between "
+                   f"events, median of {TIMED_RUNS}; plain_ms: the plain "
+                   "receivers, their planes and their backward at KP's "
+                   "cotangent, best of 3; max_abs_err: the planes and "
+                   "points"),
         kernel_row("KA alhazen_roots (config 5's Alhazen solve)",
                    "sail_tpu_torch/csrc/alhazen.cu + alhazen.cuh", no_tpu,
                    launches[2], max(float((g - w).abs().max())
@@ -2252,7 +2380,8 @@ def inverse_path(dev, card: str) -> list:
     launch, the loss falling; the step's time, the edge terms' share and
     the peak memory; the step's interior gradient K2's at the same
     cotangent bit for bit, K1 and K2 against their plain versions on a row
-    tile; KR and KP against their plain versions (`edge_kernels`);
+    tile; KR, KP, KA and KH against their plain versions
+    (`edge_kernels`);
     full_boundary_term on the card against the CPU; a central
     difference of the matte sphere's center.x beside the interior and
     boundary terms (printed, not held).  Returns the kernels' entries."""
@@ -2268,6 +2397,7 @@ def inverse_path(dev, card: str) -> list:
     from sail_tpu_torch.ops.cuda import alhazen as ka
     from sail_tpu_torch.ops.cuda import megakernel as mk
     from sail_tpu_torch.ops.cuda import penumbra as kp
+    from sail_tpu_torch.ops.cuda import receivers as kh
     from sail_tpu_torch.parallel import render_sharded as rs
     from sail_tpu_torch.render import integrator
     from sail_tpu_torch.parallel.mesh import make_mesh
@@ -2288,12 +2418,14 @@ def inverse_path(dev, card: str) -> list:
     def counts():
         return (mk.render_block.launches, mk.render_grad_block.launches,
                 mk.reduce_grad_rows.launches, mk.trace_rays.launches,
-                kp.penumbra_partials.launches, ka.alhazen_roots.launches)
+                kp.penumbra_partials.launches, ka.alhazen_roots.launches,
+                kh.trace_receivers.launches, kh.receivers_adjoint.launches)
 
     def zero():
         mk.render_block.launches = mk.render_grad_block.launches = 0
         mk.reduce_grad_rows.launches = mk.trace_rays.launches = 0
         kp.penumbra_partials.launches = ka.alhazen_roots.launches = 0
+        kh.trace_receivers.launches = kh.receivers_adjoint.launches = 0
 
     # -- the main path: the target, then the train steps ---------------------
     zero()
@@ -2301,9 +2433,9 @@ def inverse_path(dev, card: str) -> list:
         target = rs.render_sharded(params, static, mesh, n, n, spp,
                                    max_bounces=bounces)
     torch.cuda.synchronize()
-    if counts() != (1, 0, 0, 0, 0, 0):
+    if counts() != (1, 0, 0, 0, 0, 0, 0, 0):
         raise AssertionError(f"the target made {counts()} K1/K2/reduce/KR/KP"
-                             f"/KA launches, not one K1")
+                             f"/KA/KH/KH' launches, not one K1")
     p = start.to(dev, copy=True).requires_grad_()
     opt = torch.optim.Adam([p], lr=INV_LR)
     step = rs.make_train_step(static, mesh, n, n, spp, opt,
@@ -2344,15 +2476,16 @@ def inverse_path(dev, card: str) -> list:
                              f"and {plain_traced.calls} calls of the "
                              f"plain integrator's, not none")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-    # the wrappers count where they launch: KR, KP, KP's reduce and KA on
-    # the step that ran the edge terms eagerly; a replay's are counted from
-    # the profiler below
-    want_steps = [(1, 1, 1 + e, e, e, e) for e in eager_steps]
+    # the wrappers count where they launch: KR, KP, KP's reduce, KA, KH
+    # and its adjoint and the adjoint's reduce on the step that ran the edge
+    # terms eagerly; a replay's are counted from the profiler below
+    want_steps = [(1, 1, 1 + 2 * e, e, e, e, e, e) for e in eager_steps]
     if per_step != want_steps or eager_steps[0] != 1 or sum(eager_steps) != 1:
         raise AssertionError(f"the train steps made {per_step} "
-                             f"K1/K2/reduce/KR/KP/KA launches, not "
+                             f"K1/K2/reduce/KR/KP/KA/KH/KH' launches, not "
                              f"{want_steps} (one K1, K2 and K2's reduce a "
-                             f"step, KR, KP, KP's reduce and KA on the one "
+                             f"step, KR, KP, KP's reduce, KA, KH, its "
+                             f"adjoint and the adjoint's reduce on the one "
                              f"eager step)")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
             and torch.isfinite(p.detach()).all()):
@@ -2435,16 +2568,18 @@ def inverse_path(dev, card: str) -> list:
             torch.cuda.synchronize()
         step_launches[name] = metrics.kernel_launches(prof)
         if name == "edge":
-            # the step replays the edge terms' graph: its KR, KP, reduces
-            # and KA, counted on the device by name
+            # the step replays the edge terms' graph: its KR, KP, reduces,
+            # KA, KH and KH's adjoint, counted on the device by name
             replayed = metrics.kernels_named(prof, EDGE_KERNEL_NAMES)
     if (full_boundary_term.replays != replays0 + 1
-            or replayed != (1, 1, 2, 1)):
+            or replayed != (1, 1, 3, 1, 1, 1)):
         raise AssertionError(f"the profiled step replayed the edge terms "
                              f"{full_boundary_term.replays - replays0} "
-                             f"times and ran {replayed} KR/KP/reduce/KA "
-                             f"kernels, not one replay with one KR, one KP, "
-                             f"two reduces (K2's and KP's) and one KA")
+                             f"times and ran {replayed} KR/KP/reduce/KA/KH/"
+                             f"KH' kernels, not one replay with one KR, one "
+                             f"KP, three reduces (K2's, KP's and KH's "
+                             f"adjoint's), one KA, one KH and one KH "
+                             f"adjoint")
 
     # -- K2 and K1 against their plain versions on a row tile of the step --
     t_rows, t_row0 = K2_TILE["cornell_mirror"]
@@ -2528,10 +2663,10 @@ def inverse_path(dev, card: str) -> list:
     print(f"phase 12 inverse rendering: config 5 cornell_mirror {n}x{n} "
           f"spp{spp} b{bounces}, boundary on: the target 1 K1 launch; "
           f"{INV_STEPS} train steps (Adam lr {INV_LR}, inverse_artifact's "
-          f"trainable leaves), K1/K2/reduce/KR/KP/KA launches counted by "
-          f"the wrappers {per_step} (the edge terms eager on the first "
-          f"step, captured on the second, replayed after), a replayed "
-          f"step's KR/KP/reduce/KA kernels on the device {replayed}, "
+          f"trainable leaves), K1/K2/reduce/KR/KP/KA/KH/KH' launches "
+          f"counted by the wrappers {per_step} (the edge terms eager on the "
+          f"first step, captured on the second, replayed after), a replayed "
+          f"step's KR/KP/reduce/KA/KH/KH' kernels on the device {replayed}, "
           f"loss {' '.join(f'{x:.6g}' for x in losses)}; step "
           f"{' '.join(f'{x:.1f}' for x in step_ms)} ms host clock (median "
           f"{step_med:.1f}), {' '.join(f'{x:.1f}' for x in step_ev_ms)} ms "
@@ -3044,10 +3179,11 @@ def tools_path(dev, card: str) -> list:
                                                  term.replays)))
     losses = res["losses"]
     # a step: K1 and K2 once each and the reduce for K2's rows; the edge
-    # terms (KR, KP and the reduce for KP's rows) run eagerly at the first
-    # step, are captured at the second and replayed from then on, which
-    # the wrappers do not count (full_boundary_term); and three renders
-    if inv_launches != (isteps + 3, isteps, isteps + 1, 1, 1) \
+    # terms (KR, KP, KH's adjoint and the reduces for KP's and the
+    # adjoint's rows) run eagerly at the first step, are captured at the
+    # second and replayed from then on, which the wrappers do not count
+    # (full_boundary_term); and three renders
+    if inv_launches != (isteps + 3, isteps, isteps + 2, 1, 1) \
             or graph != (1, 1, isteps - 1) \
             or not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"inverse_render made {inv_launches} "
@@ -3210,7 +3346,7 @@ def main() -> int:
     libs = ("megakernel", *(("megakernel_grad", b.defines)
                             for b in mk.GRAD_BUILDS),
             "reduce_grad_rows", "profile", pf.GRAD_LIBRARY, "trace_rays",
-            "penumbra", "alhazen")
+            "penumbra", "alhazen", "receivers")
     build.build(*libs)   # one nvcc each, as many at once as there are cores
     build_s = time.perf_counter() - t0
     usage = {f"{k} ({build._spec(lib)[0]})": v

@@ -1,8 +1,9 @@
-// The edge terms' kernels on the CPU, for tests/test_torch_edge_kernels.py
-// and tests/test_torch_alhazen.py: KR's per-ray loop (render_block.cuh
-// `ray_radiance`, a block of one thread, whose barrier returns its own
-// predicate), KP's per-pixel term and adjoint (penumbra.cuh
-// `penumbra_pixel`) and KA's Alhazen solve (alhazen.cuh), through the stub
+// The edge terms' kernels on the CPU, for tests/test_torch_edge_kernels.py,
+// tests/test_torch_alhazen.py and tests/test_torch_receivers.py: KR's
+// per-ray loop (render_block.cuh `ray_radiance`, a block of one thread, whose
+// barrier returns its own predicate), KP's per-pixel term and adjoint
+// (penumbra.cuh `penumbra_pixel`), KA's Alhazen solve (alhazen.cuh) and KH's
+// receivers and their adjoint (receivers.cuh), through the stub
 // cuda_runtime.h.
 // Build with a host compiler, this directory first on the include path and
 // no contraction of multiply-adds (the kernels build -fmad=false), as
@@ -13,6 +14,7 @@
 
 #include "../alhazen.cuh"
 #include "../penumbra.cuh"
+#include "../receivers.cuh"
 #include "../render_block.cuh"
 
 // KR's radiance of n rays, host arrays laid out as sail_trace_rays takes
@@ -105,5 +107,32 @@ extern "C" int sail_host_alhazen(const float* frame, const float* table, const f
     ka_radial(f, c, idx >= 0, table + KA_NS, cphi[j], sphi[j], out[2 + j], out[2 + n + j], m);
     mask[j] = m;
   }
+  return 0;
+}
+
+// KH's receivers on host arrays laid out as sail_receivers takes them.
+extern "C" int sail_host_receivers(const float* params, const int* table, int n_obj, int n_plain,
+                                   int n_groups, int n_mat, int n_tex, int n_light, int cam, int R,
+                                   float* planes, int* ints, float* xs, int height, int width) {
+  Scene s = make_scene(params, table, n_obj, n_plain, n_groups, n_mat, n_tex, n_light, cam);
+  for (int row = 0; row < height; ++row)
+    for (int col = 0; col < width; ++col)
+      receivers_pixel(s, R, row, col, height, width, planes, ints, xs);
+  return 0;
+}
+
+// KH's adjoint on host arrays laid out as sail_receivers_grad takes them;
+// `acc` (H·W, 14): each pixel's own camera partials (summed by the caller).
+extern "C" int sail_host_receivers_grad(const float* params, const int* table, int n_obj,
+                                        int n_plain, int n_groups, int n_mat, int n_tex,
+                                        int n_light, int cam, int R, const float* gx, float* acc,
+                                        int height, int width) {
+  Scene s = make_scene(params, table, n_obj, n_plain, n_groups, n_mat, n_tex, n_light, cam);
+  for (int row = 0; row < height; ++row)
+    for (int col = 0; col < width; ++col) {
+      float* a = acc + ((long long)row * width + col) * KH_CAMERA;
+      for (int j = 0; j < KH_CAMERA; ++j) a[j] = 0.f;
+      receivers_grad_pixel(s, R, gx, row, col, height, width, a, 1);
+    }
   return 0;
 }

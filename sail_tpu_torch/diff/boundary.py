@@ -55,9 +55,9 @@ from ..core.vecmath import Vec3
 from ..ops import intersect as isect
 from ..ops import materials as mat_ops
 from ..ops import textures as tex_ops
-from ..ops.cuda import alhazen, penumbra
+from ..ops.cuda import alhazen, penumbra, receivers
 from ..ops.cuda.megakernel import trace_rays
-from ..scene.scene import unflatten
+from ..scene.scene import param_offsets, unflatten
 from ..utils.graphs import Replay
 from ..utils.metrics import span, spanned
 
@@ -765,9 +765,12 @@ def shadow_boundary_term(params: torch.Tensor, static, d_loss_d_image,
     tangent circle seen from x, projected onto the light.  This evaluates
     dD/dθ = −∮_{Γ_x∩A} h(y) (n̂·dy/dθ) dl per pixel, h the unoccluded
     integrand, at K = `n_curve_samples` points of each curve; no ray is
-    traced for it.  The receivers' hits are torch's; the term itself is
-    `ops/cuda/penumbra.penumbra_scalar`'s: on the CPU the plain version over
-    (K, H, W) tensors, on the card KP, one kernel with its adjoint.
+    traced for it.  The term itself is `ops/cuda/penumbra`'s: on the CPU
+    the plain version over (K, H, W) tensors, on the card KP, one kernel
+    with its adjoint.  The receivers are torch's on the CPU
+    (`_shadow_term_plain`); on the card the primary and mirror receivers
+    are KH's, one kernel with its adjoint (`ops/cuda/receivers.py`,
+    `_shadow_term_kernel`).
 
     Receivers: matte surfaces seen directly or through one Mirror bounce
     (planar or curved, weighted by the mirror's kr·texture tint), and with
@@ -787,19 +790,71 @@ def shadow_boundary_term(params: torch.Tensor, static, d_loss_d_image,
             static.area_light_objects[li]] == C.RECTANGLE]
     if not sphere_ids or not rect_lights:
         return torch.zeros_like(params)
+    pairs = [(i, li, obj_idx) for i in sphere_ids
+             for li, obj_idx in rect_lights
+             if obj_idx != i]   # a light does not shadow itself
+    term = _shadow_term_kernel if params.is_cuda else _shadow_term_plain
+    return term(params, static, dL, height, width, n_curve_samples, seed,
+                n_indirect_dirs, pairs)
 
-    pk_d = unflatten(params.detach(), static)
-    dev = params.device
-    (ii, jj), (ro, rd) = _pixel_rays(pk_d.camera, height, width, params)
-    hit = isect.intersect_scene(pk_d.objects, static, ro, rd)
-    matte_rows = _material_rows(static, C.MATTE, dev)
-    mirror_rows = _material_rows(static, C.MIRROR, dev)
+
+def _indirect_receivers(pk_d, static, hit, rd, ii, jj, seed: int,
+                        n_indirect_dirs: int, receiver_data):
+    """The one-diffuse-bounce receivers of the primary hits `hit` (along
+    `rd`, pixels (ii, jj)): [(tag, hits, direction, tint)] and their
+    detached points by tag."""
+    like = rd.x
+    ss0, ts0, wo0, sc0, prim_matte = receiver_data(hit, rd)
+    ii_i, jj_i = ii.to(torch.int32), jj.to(torch.int32)
+    half = torch.full(like.shape, 0.5, dtype=like.dtype, device=like.device)
+    receivers, x_static = [], {}
+    for k in range(n_indirect_dirs):
+        # per-pixel decorrelated directions (the counter RNG): shared
+        # strata correlate the quadrature error across the image
+        nk = rng.pixel_noise(seed, 52361 + k, ii=ii_i, jj=jj_i)
+        u1k, u2k, _ = nk.uniform3(0, rng.TAG_BSDF)
+        ms0 = mat_ops.sample_material(pk_d.materials, static, hit.mat_row,
+                                      sc0, u1k, u2k, half, wo0, hit.into)
+        wi_w = vm.local_to_world(ms0.wi, hit.n, ss0, ts0)
+        outdot = hit.n.dot(wi_w)
+        ro2k = hit.p + hit.n * torch.where(outdot > 0.0, 1e-4, -1e-4)
+        hit2k = isect.intersect_scene(pk_d.objects, static, ro2k, wi_w)
+        tint_k = Vec3(*(torch.where(prim_matte, w / n_indirect_dirs, 0.0)
+                        for w in ms0.weight.clip(0.0, 1.0)))
+        tag = f"ind{k}"
+        x_static[tag] = _detach(hit2k.p)
+        receivers.append((tag, hit2k._replace(valid=hit2k.valid
+                                              & prim_matte),
+                          wi_w, tint_k))
+    return receivers, x_static
+
+
+def _receiver_data(pk_d, static, device):
+    """`receiver_data(h, d)`: (ss, ts, wo, surface color, mask) of hits `h`
+    reached along `d`, the mask a valid, matte, not emissive hit."""
+    matte_rows = _material_rows(static, C.MATTE, device)
 
     def receiver_data(h, d):
         ss, ts_f, wo = _shading_frame(h, d)
         sc = _surface_color(pk_d, static, h)
         rec = h.valid & matte_rows[h.mat_row.long()] & (h.emissive == 0)
         return ss, ts_f, wo, sc, rec
+    return receiver_data
+
+
+def _shadow_term_plain(params, static, dL: Vec3, height: int, width: int,
+                       n_curve_samples: int, seed: int, n_indirect_dirs: int,
+                       pairs) -> torch.Tensor:
+    """`shadow_boundary_term` with torch's receivers: the detached hits of
+    the pixel rays and their mirror bounce, then, under autograd, the same
+    hits of the live camera's rays for the points (`_live_points`), and
+    `penumbra.penumbra_scalar`."""
+    pk_d = unflatten(params.detach(), static)
+    dev = params.device
+    (ii, jj), (ro, rd) = _pixel_rays(pk_d.camera, height, width, params)
+    hit = isect.intersect_scene(pk_d.objects, static, ro, rd)
+    mirror_rows = _material_rows(static, C.MIRROR, dev)
+    receiver_data = _receiver_data(pk_d, static, dev)
 
     one = torch.ones((height, width), dtype=params.dtype, device=dev)
     receivers = [("primary", hit, rd, Vec3(one, one, one))]
@@ -824,37 +879,13 @@ def shadow_boundary_term(params: torch.Tensor, static, d_loss_d_image,
     # -- one diffuse bounce: indirect shadows, through the bounce's weight
     x_static = {}
     if n_indirect_dirs > 0:
-        prim_matte = (hit.valid & matte_rows[hit.mat_row.long()]
-                      & (hit.emissive == 0))
-        ss0, ts0, wo0, sc0, _ = receiver_data(hit, rd)
-        ii_i, jj_i = ii.to(torch.int32), jj.to(torch.int32)
-        half = torch.full((height, width), 0.5, dtype=params.dtype,
-                          device=dev)
-        for k in range(n_indirect_dirs):
-            # per-pixel decorrelated directions (the counter RNG): shared
-            # strata correlate the quadrature error across the image
-            nk = rng.pixel_noise(seed, 52361 + k, ii=ii_i, jj=jj_i)
-            u1k, u2k, _ = nk.uniform3(0, rng.TAG_BSDF)
-            ms0 = mat_ops.sample_material(pk_d.materials, static,
-                                          hit.mat_row, sc0, u1k, u2k, half,
-                                          wo0, hit.into)
-            wi_w = vm.local_to_world(ms0.wi, hit.n, ss0, ts0)
-            outdot = hit.n.dot(wi_w)
-            ro2k = hit.p + hit.n * torch.where(outdot > 0.0, 1e-4, -1e-4)
-            hit2k = isect.intersect_scene(pk_d.objects, static, ro2k, wi_w)
-            tint_k = Vec3(*(torch.where(prim_matte, w / n_indirect_dirs, 0.0)
-                            for w in ms0.weight.clip(0.0, 1.0)))
-            tag = f"ind{k}"
-            x_static[tag] = _detach(hit2k.p)
-            receivers.append((tag, hit2k._replace(valid=hit2k.valid
-                                                  & prim_matte),
-                              wi_w, tint_k))
+        indirect, x_static = _indirect_receivers(
+            pk_d, static, hit, rd, ii, jj, seed, n_indirect_dirs,
+            receiver_data)
+        receivers += indirect
 
     recv = [penumbra.Receiver(tag, rhit, tint, *receiver_data(rhit, rdir))
             for tag, rhit, rdir, tint in receivers]
-    pairs = [(i, li, obj_idx) for i in sphere_ids
-             for li, obj_idx in rect_lights
-             if obj_idx != i]   # a light does not shadow itself
 
     def edge_scalar(pk, _):
         # live: the curve's position, of the occluder's parameters and the
@@ -862,18 +893,72 @@ def shadow_boundary_term(params: torch.Tensor, static, d_loss_d_image,
         # detached scene (x stays on the fixed receiver surface while moving
         # with the eye); mirror receivers follow the live ray through the
         # detached mirror; indirect receivers stay detached
-        _, (ro_l, rd_l) = _pixel_rays(pk.camera, height, width, params)
-        h1 = isect.intersect_scene(pk_d.objects, static, ro_l, rd_l)
-        x_live = {"primary": h1.p}
-        if "mirror" in {rc.tag for rc in recv}:
-            rd2_l = (rd_l - h1.n * (2.0 * h1.n.dot(rd_l))).normalize()
-            x_live["mirror"] = isect.intersect_scene(
-                pk_d.objects, static, h1.p + h1.n * 1e-4, rd2_l).p
+        x_live = _live_points(pk.camera, pk_d, static, height, width, params,
+                              "mirror" in {rc.tag for rc in recv})
         x_live.update(x_static)
         return penumbra.penumbra_scalar(pk, pk_d, static, dL, recv, x_live,
                                         pairs, n_curve_samples)
 
     return _edge_grad(edge_scalar, params, static)
+
+
+def _live_points(cam, pk_d, static, height: int, width: int,
+                 like: torch.Tensor, mirror: bool) -> dict:
+    """The primary receivers' points (and with `mirror` the mirror
+    receivers') of the camera `cam`'s pixel rays against the detached scene
+    `pk_d`, by tag: the points KH (`ops/cuda/receivers.py`) computes, and
+    whose gradient with respect to the camera its adjoint is."""
+    _, (ro_l, rd_l) = _pixel_rays(cam, height, width, like)
+    h1 = isect.intersect_scene(pk_d.objects, static, ro_l, rd_l)
+    x_live = {"primary": h1.p}
+    if mirror:
+        rd2_l = (rd_l - h1.n * (2.0 * h1.n.dot(rd_l))).normalize()
+        x_live["mirror"] = isect.intersect_scene(
+            pk_d.objects, static, h1.p + h1.n * 1e-4, rd2_l).p
+    return x_live
+
+
+def _shadow_term_kernel(params, static, dL: Vec3, height: int, width: int,
+                        n_curve_samples: int, seed: int,
+                        n_indirect_dirs: int, pairs) -> torch.Tensor:
+    """`shadow_boundary_term` on the card: the primary and mirror receivers
+    from KH, live in the camera's parameters (a slice of the flat tensor),
+    and with `n_indirect_dirs` > 0 the diffuse-bounce receivers from torch
+    (detached) after them; the term through KP
+    (`penumbra.penumbra_scalar_packed`), live in the spheres' centers and
+    radii (slices too)."""
+    params_d = params.detach()
+    pk_d = unflatten(params_d, static)
+    off = param_offsets(static)
+    R = 2 if any(c == C.MIRROR for c in static.material_categories) else 1
+    extra = None
+    if n_indirect_dirs > 0:
+        (ii, jj), (ro, rd) = _pixel_rays(pk_d.camera, height, width, params)
+        hit = isect.intersect_scene(pk_d.objects, static, ro, rd)
+        receiver_data = _receiver_data(pk_d, static, params.device)
+        indirect, x_static = _indirect_receivers(
+            pk_d, static, hit, rd, ii, jj, seed, n_indirect_dirs,
+            receiver_data)
+        recv = [penumbra.Receiver(tag, rhit, tint, *receiver_data(rhit, rd_k))
+                for tag, rhit, rd_k, tint in indirect]
+        extra = (*penumbra.receiver_planes(recv),
+                 torch.stack([x_static[rc.tag].stack(0) for rc in recv]))
+    sphere_ids = list(dict.fromkeys(i for i, _, _ in pairs))
+    p = params.detach().requires_grad_()
+    with torch.enable_grad():
+        xs, planes, ints = receivers.live_receivers(
+            p[off.camera:off.size], params_d, static, height, width, R)
+        if extra is not None:
+            planes, ints, xs = (torch.cat((a, b))
+                                for a, b in zip((planes, ints, xs), extra))
+        spheres = torch.stack([p[off.objects[i]:off.objects[i] + 4]
+                               for i in sphere_ids])
+        total = penumbra.penumbra_scalar_packed(
+            spheres, xs, pk_d, static, dL, planes, ints, pairs,
+            n_curve_samples)
+    with span("sail.edge_backward"):
+        (grad,) = torch.autograd.grad(total, p)
+    return grad
 
 
 def indirect_silhouette_term(params: torch.Tensor, static, d_loss_d_image,

@@ -13,6 +13,9 @@ forward launches KP (`csrc/penumbra.cu`, `penumbra_partials`), which
 computes the scalar and its partials with respect to the spheres' (S, 4)
 centers and radii and the receivers' (R, 3, H, W) points in one pass, and
 whose backward hands those partials on.  No fallback from one to the other.
+On the card `shadow_boundary_term` hands KP the receivers as KH
+(`ops/cuda/receivers.py`) lays them out, through `penumbra_scalar_packed`;
+`penumbra_scalar_kernel` packs `Receiver` records the same way.
 
 KP replaces no TPU kernel: the JAX package's `shadow_boundary_term`
 (`sail_tpu/diff/boundary.py:773`) is XLA's inside the jitted train step
@@ -200,16 +203,22 @@ def _ints_on(values: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.int32, device=device)
 
 
-def pack_inputs(pk_d, static, dL: Vec3, receivers, pairs, K: int):
-    """(sphere indices, Inputs) for KP from the detached scene."""
-    like = dL.x
-    sphere_ids = list(dict.fromkeys(i for i, _, _ in pairs))
-    light_ids = list(dict.fromkeys((li, o) for _, li, o in pairs))
+def receiver_planes(receivers):
+    """(planes, ints) of `Receiver` records, as KPIn lays them out."""
     planes = torch.stack([_stack((*rc.hit.n, *rc.ss, *rc.ts, *rc.wo,
                                   *rc.sc, *rc.tint)) for rc in receivers])
     ints = torch.stack([torch.stack((
         torch.where(rc.mask, rc.hit.mat_row.to(torch.int32), -1),
         rc.hit.obj_id.to(torch.int32))) for rc in receivers])
+    return planes, ints
+
+
+def pack_inputs(pk_d, static, dL: Vec3, planes, ints, pairs, K: int):
+    """(sphere indices, Inputs) for KP from the detached scene and the
+    receivers' `planes` and `ints` (`receiver_planes`' layout)."""
+    like = dL.x
+    sphere_ids = list(dict.fromkeys(i for i, _, _ in pairs))
+    light_ids = list(dict.fromkeys((li, o) for _, li, o in pairs))
     mats = [torch.stack((m.kd, m.sigma)) if cat == C.MATTE
             else like.new_zeros(2)
             for cat, m in zip(static.material_categories, pk_d.materials)]
@@ -328,17 +337,30 @@ class _Penumbra(torch.autograd.Function):
         return g * g_s, g * g_x, None, None
 
 
+def penumbra_scalar_packed(spheres, xs, pk_d, static, dL: Vec3, planes,
+                           ints, pairs, K: int,
+                           partials=penumbra_partials) -> torch.Tensor:
+    """Σ coeff · (n̂ · y) through KP (`partials`: the kernel, or a function
+    of the same contract) of the live spheres (S, 4) (center, radius of
+    each sphere of `pairs` in its first order) and receiver points
+    (R, 3, H, W), the receivers' `planes` and `ints` in KP's layout."""
+    _, inputs = pack_inputs(pk_d, static, dL, planes, ints, pairs, K)
+    return _Penumbra.apply(spheres, xs, inputs, partials)
+
+
 def penumbra_scalar_kernel(pk, pk_d, static, dL: Vec3, receivers,
                            x_live: dict, pairs, K: int,
                            partials=penumbra_partials) -> torch.Tensor:
     """`penumbra_scalar_plain`'s scalar through KP (`partials`: the kernel,
     or a function of the same contract)."""
-    sphere_ids, inputs = pack_inputs(pk_d, static, dL, receivers, pairs, K)
+    sphere_ids = list(dict.fromkeys(i for i, _, _ in pairs))
     spheres = torch.stack([torch.stack((*pk.objects[i].center,
                                         pk.objects[i].radius))
                            for i in sphere_ids])
     xs = torch.stack([x_live[rc.tag].stack(0) for rc in receivers])
-    return _Penumbra.apply(spheres, xs, inputs, partials)
+    return penumbra_scalar_packed(spheres, xs, pk_d, static, dL,
+                                  *receiver_planes(receivers), pairs, K,
+                                  partials)
 
 
 def penumbra_scalar(pk, pk_d, static, dL: Vec3, receivers, x_live: dict,

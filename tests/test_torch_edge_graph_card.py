@@ -7,10 +7,13 @@ inputs.
   third replays; each result equals the eager term bit for bit (the eager
   term, run twice on each step's inputs, first shows that it is bit-stable
   on its own); `full_boundary_term.eager`, `.captures` and `.replays`
-  count each call, and the wrappers' `launches` (KR, KP, the reduce after
-  KP) count the eager call's launches only.  A replay's KR, KP and reduce
-  kernels are counted from the profiler's kernel events by name: as many
-  as the eager call launched.
+  count each call, and the wrappers' `launches` (KR, KP, the reduces after
+  KP and KH's adjoint, KA, KH, KH's adjoint) count the eager call's
+  launches only.  A replay's kernels are counted from the profiler's
+  kernel events by name: as many as the eager call launched, one KH and
+  one KH adjoint among them.
+- Config 5's term with KH's receivers, replayed, against the term with
+  the plain receivers on the card, per leaf.
 - A new key (another `n_noise`, another image size) runs eagerly, then
   captures a graph of its own.
 - Other inputs the same code takes: config 5's scene with the diffuse-
@@ -36,6 +39,7 @@ from sail_tpu_torch.diff import boundary as tb
 from sail_tpu_torch.ops.cuda import alhazen as ka
 from sail_tpu_torch.ops.cuda import megakernel as mk
 from sail_tpu_torch.ops.cuda import penumbra as kp
+from sail_tpu_torch.ops.cuda import receivers as kh
 from sail_tpu_torch.parallel import render_sharded as rs
 from sail_tpu_torch.parallel.mesh import make_mesh
 from sail_tpu_torch.scene.scene import leaf_paths
@@ -48,10 +52,12 @@ BOUNCES = 4
 EDGE = dict(n_edge_samples=192, n_noise=2, max_bounces=BOUNCES,
             n_curve_samples=32)
 KERNELS = (mk.trace_rays, kp.penumbra_partials, mk.reduce_grad_rows,
-           ka.alhazen_roots)
+           ka.alhazen_roots, kh.trace_receivers, kh.receivers_adjoint)
 # the term with KA against the term with the plain Alhazen solve, per leaf:
-# |diff| <= KA_TOL · max|plain|
+# |diff| <= KA_TOL · max|plain|; and the term with KH's receivers against
+# the term with the plain receivers, the same
 KA_TOL = 2.7e-5
+KH_TOL = 2.7e-5
 
 
 @pytest.fixture
@@ -85,7 +91,8 @@ def _delta(before, after):
 
 # the hand-written kernels' names in the profiler, in KERNELS' order
 KERNEL_NAMES = ("trace_rays_kernel", "penumbra_kernel",
-                "reduce_grad_rows_kernel", "alhazen_kernel")
+                "reduce_grad_rows_kernel", "alhazen_kernel",
+                "receivers_kernel", "receivers_grad_kernel")
 
 
 class _Calls:
@@ -108,7 +115,7 @@ class _Calls:
     def check(self, label):
         """Each result is the eager term's bit for bit; on each device the
         counters say eager, capture, replay, replay, ..., and the wrappers
-        count KR, KP and its reduce on the eager call only."""
+        count their kernels' launches on the eager call only."""
         by_device = collections.defaultdict(list)
         for dev, *row in self.rows:
             by_device[dev].append(row)
@@ -166,10 +173,12 @@ def test_config5_train_steps_replay_the_eager_term(card, fresh_graphs,
         "each step has its own adjoint"
     calls.check("config 5")
     assert min(calls.rows[0][2][1]) > 0, \
-        "config 5 launches KR, KP, reduce and KA"
+        "config 5 launches KR, KP, reduce, KA, KH and KH's adjoint"
     assert calls.rows[0][2][1][3] == 1, "one KA launch: one mirror pair"
+    assert calls.rows[0][2][1][4:] == (1, 1), "one KH and one KH adjoint"
     # a replayed train step, with the term itself (no eager runs beside
-    # it), runs one KA kernel, inside the term's graph
+    # it), runs one KA, one KH and one KH adjoint kernel, inside the term's
+    # graph
     monkeypatch.setattr(rs, "full_boundary_term", tb.full_boundary_term)
     replays = tb.full_boundary_term.replays
     with torch.profiler.profile(
@@ -177,7 +186,7 @@ def test_config5_train_steps_replay_the_eager_term(card, fresh_graphs,
         step(target)
         torch.cuda.synchronize()
     assert tb.full_boundary_term.replays == replays + 1
-    assert metrics.kernels_named(prof, ("alhazen_kernel",)) == (1,)
+    assert metrics.kernels_named(prof, KERNEL_NAMES[3:]) == (1, 1, 1)
     # a replay runs KR, KP and its reduce as often as the eager call
     # launched them: counted on the device, by name
     gen = torch.Generator().manual_seed(11)
@@ -227,6 +236,38 @@ def test_config5_term_with_ka_matches_the_plain_solve(card, fresh_graphs,
     assert float(d[k]) <= KA_TOL * top, \
         f"leaf {keys[k]}: KA {float(runs[2][k]):.8g} plain " \
         f"{float(plain[k]):.8g}, |diff| {float(d[k]):.3g} > {KA_TOL:g} x " \
+        f"{top:.3g}"
+
+
+@pytest.mark.card
+def test_config5_term_with_kh_matches_the_plain_receivers(card, fresh_graphs,
+                                                          monkeypatch):
+    """The replayed term (KH's receivers) equals its eager call bit for
+    bit, and the term with the plain receivers per leaf within KH_TOL."""
+    params, static = scenes.cornell_mirror().pack()
+    keys = leaf_paths(static)
+    params[keys.index(".objects[2].center.x")] = 0.58
+    p = params.to(card)
+    gen = torch.Generator().manual_seed(23)
+    adj = Vec3(*(torch.rand((3, SIZE, SIZE), generator=gen).to(card)
+                 * 1e-6))
+    kw = dict(seed=5 + 7717, **EDGE)
+    launched = kh.trace_receivers.launches
+    runs = [tb.full_boundary_term(p, static, adj, SIZE, SIZE, **kw)
+            for _ in range(3)]
+    assert tb.full_boundary_term.replays >= 1
+    assert kh.trace_receivers.launches == launched + 1, "KH on the eager call"
+    eager = tb._full_boundary_term(p, static, adj, SIZE, SIZE, **kw)
+    assert torch.equal(_bits(runs[2]), _bits(eager))
+    monkeypatch.setattr(tb, "_shadow_term_kernel", tb._shadow_term_plain)
+    plain = tb._full_boundary_term(p, static, adj, SIZE, SIZE, **kw)
+    top = float(plain.abs().max())
+    d = (runs[2] - plain).abs()
+    k = int(d.argmax())
+    assert top > 0 and bool(torch.isfinite(runs[2]).all())
+    assert float(d[k]) <= KH_TOL * top, \
+        f"leaf {keys[k]}: KH {float(runs[2][k]):.8g} plain " \
+        f"{float(plain[k]):.8g}, |diff| {float(d[k]):.3g} > {KH_TOL:g} x " \
         f"{top:.3g}"
 
 

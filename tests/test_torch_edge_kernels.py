@@ -332,7 +332,8 @@ def test_kp_partials_match_autograd(host):
         kp.penumbra_scalar = orig
     c = captured
     assert [rc.tag for rc in c["receivers"]] == ["primary", "mirror"]
-    ids, inputs = kp.pack_inputs(c["pk_d"], static, c["dL"], c["receivers"],
+    ids, inputs = kp.pack_inputs(c["pk_d"], static, c["dL"],
+                                 *kp.receiver_planes(c["receivers"]),
                                  c["pairs"], K)
     p = params.clone().requires_grad_()
     pk = unflatten(p, static)
